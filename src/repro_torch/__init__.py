@@ -1,0 +1,10 @@
+"""PyTorch and CUDA port of the LTSP tape-scheduling system.
+
+Stands beside the JAX package ``repro`` (the reference, which it never
+imports) with the same layout: ``core`` (instances, the paper's DP and
+heuristics, the solver engine), ``data`` (seeded IN2P3-like workloads),
+``kernels.ltsp_dp`` (the DP wavefront as a hand-written CUDA kernel plus its
+plain torch version), ``storage`` (the tape library) and ``serving`` (the
+schedule replay oracle).  Device entry points run on the card unless the
+caller asks for the CPU.
+"""

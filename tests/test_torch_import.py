@@ -1,0 +1,43 @@
+"""The port stands alone: it imports neither JAX nor the JAX package."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytestmark = pytest.mark.port
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any attempt to import jax now raises ImportError
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+print(len(names), leaked)
+"""
+
+
+def test_every_module_imports_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    count, leaked = proc.stdout.split(maxsplit=1)
+    assert int(count) >= 20
+    assert leaked.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in
+                                        [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_no_import_of_jax_or_the_jax_package(path):
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
+    offending = [line for line in (ROOT / path).read_text().splitlines() if pattern.match(line)]
+    assert offending == []
