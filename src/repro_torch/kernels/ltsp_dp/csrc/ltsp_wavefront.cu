@@ -28,67 +28,22 @@
 // tiling of the row/column slices in shared memory), so it runs far above
 // the bound; the measured times are in PERF.md.
 //
-// Exactness: every table value is an integer below the numeric guard of the
-// caller, but the dense table also holds cells that no solve reads (clamped
-// gathers at large s), so the arithmetic is pinned anyway.  int32 adds and
-// multiplies go through uint32, so they wrap exactly like the reference's
-// int32 arrays.  Float adds and multiplies use the _rn intrinsics, which
-// nvcc never contracts into FMAs, in the reference's operation order, so
-// each result is rounded exactly as the plain version rounds it.
-//
-// The sentinel of masked candidates (INT32_MAX/2 for int32, +inf for the
-// floats) and the scan form of the reference (one static tile over
-// c = 1..R-1 when R-1 <= cand_tile, else a banded fold starting from the
-// sentinel) only show in cells whose live candidates all reach the
-// sentinel; `static_tile` reproduces both forms there, bit for bit.
+// Exactness, sentinels and the two scan forms of the reference: see
+// ltsp_common.cuh.
 //
 // The kernel writes T[i,a,a+d,:] and C[i,a,a+d,:] in place.  It reads only
-// diagonals < d, which no block of this launch writes.
+// diagonals < d, which no block of this launch writes.  The tiled build in
+// ltsp_tiled.cu replaces it on the main path; it stays as the per-diagonal
+// form of the JAX package's `ltsp_dp_wavefront` and as the baseline that
+// chip_smoke.py times beside the tiled build.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "ltsp_common.cuh"
 
 namespace {
 
+using ltsp::Arith;
+
 constexpr int kThreads = 256;
-
-template <typename V>
-struct Arith;
-
-template <>
-struct Arith<int32_t> {
-  __device__ static __forceinline__ int32_t big() { return INT32_MAX / 2; }
-  __device__ static __forceinline__ int32_t add(int32_t p, int32_t q) {
-    return static_cast<int32_t>(static_cast<uint32_t>(p) + static_cast<uint32_t>(q));
-  }
-  __device__ static __forceinline__ int32_t sub(int32_t p, int32_t q) {
-    return static_cast<int32_t>(static_cast<uint32_t>(p) - static_cast<uint32_t>(q));
-  }
-  __device__ static __forceinline__ int32_t mul(int32_t p, int32_t q) {
-    return static_cast<int32_t>(static_cast<uint32_t>(p) * static_cast<uint32_t>(q));
-  }
-  __device__ static __forceinline__ int32_t from_int(int v) { return v; }
-};
-
-template <>
-struct Arith<float> {
-  __device__ static __forceinline__ float big() { return __int_as_float(0x7f800000); }
-  __device__ static __forceinline__ float add(float p, float q) { return __fadd_rn(p, q); }
-  __device__ static __forceinline__ float sub(float p, float q) { return __fsub_rn(p, q); }
-  __device__ static __forceinline__ float mul(float p, float q) { return __fmul_rn(p, q); }
-  __device__ static __forceinline__ float from_int(int v) { return static_cast<float>(v); }
-};
-
-template <>
-struct Arith<double> {
-  __device__ static __forceinline__ double big() {
-    return __longlong_as_double(0x7ff0000000000000LL);
-  }
-  __device__ static __forceinline__ double add(double p, double q) { return __dadd_rn(p, q); }
-  __device__ static __forceinline__ double sub(double p, double q) { return __dsub_rn(p, q); }
-  __device__ static __forceinline__ double mul(double p, double q) { return __dmul_rn(p, q); }
-  __device__ static __forceinline__ double from_int(int v) { return static_cast<double>(v); }
-};
 
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
@@ -111,8 +66,7 @@ wavefront_kernel(V* __restrict__ T, int32_t* __restrict__ C,
   const V two = A::from_int(2);
   const V sv = A::from_int(s);
   const V r_b = rt[b];
-  const V nl_a = nls[a];
-  const V s_nl_a = A::add(sv, nl_a);
+  const V s_nl_a = A::add(sv, nls[a]);
 
   // T[i, a, c, :] is row (i*R + a)*R + c; T[i, c, b, :] is row (i*R + c)*R + b.
   const int64_t rowS = static_cast<int64_t>(S);
@@ -121,68 +75,26 @@ wavefront_kernel(V* __restrict__ T, int32_t* __restrict__ C,
   const V* col = T + (static_cast<int64_t>(i) * R * R + b) * rowS;
   const int64_t col_step = static_cast<int64_t>(R) * rowS;
 
-  // ---- skip b ----
-  const int x_b = xs[b];
-  int si = s + x_b;
-  si = si < 0 ? 0 : (si > S - 1 ? S - 1 : si);
-  const V r_bm1 = rt[b - 1];
-  const V shifted = row[static_cast<int64_t>(b - 1) * rowS + si];
-  const V skip = A::add(A::add(shifted, A::mul(A::mul(two, A::sub(r_b, r_bm1)), s_nl_a)),
-                        A::mul(A::mul(two, A::sub(lf[b], r_bm1)), A::from_int(x_b)));
+  const V skip = ltsp::skip_value(row, rowS, lf, rt, xs, b, s, S, s_nl_a);
 
   // ---- detour band: strict fold over c ascending ----
-  int c_lo = a + 1;
-  if (span >= 0 && b - span > c_lo) c_lo = b - span;
-  if (disjoint && a > 0) c_lo = b + 1;
+  const int c_lo = ltsp::window_start(a, b, span, disjoint);
   const V two_u = A::mul(two, u[i]);
   V best = A::big();
   int arg = -1;
   for (int c = c_lo; c <= b; ++c) {
-    const V t_left = row[static_cast<int64_t>(c - 1) * rowS + s];
-    const V t_right = col[static_cast<int64_t>(c) * col_step + s];
-    const V move = A::mul(A::mul(two, A::sub(r_b, rt[c - 1])), s_nl_a);
-    const V turn = A::mul(two_u, A::add(sv, nls[c]));
-    const V cand = A::add(A::add(A::add(t_left, t_right), move), turn);
+    const V cand = ltsp::detour_value(row[static_cast<int64_t>(c - 1) * rowS + s],
+                                      col[static_cast<int64_t>(c) * col_step + s],
+                                      A::mul(two, A::sub(r_b, rt[c - 1])), s_nl_a,
+                                      A::mul(two_u, A::add(sv, nls[c])));
     if (arg < 0 || cand < best) {
       best = cand;
       arg = c;
     }
   }
 
-  // ---- the reference's sentinel semantics (see the header) ----
-  const V big = A::big();
-  V det;
-  int argc;
-  if (static_tile) {
-    const bool masked_exist = c_lo > 1 || b < R - 1;
-    if (arg < 0) {
-      det = big;
-      argc = 1;
-    } else if (best < big) {
-      det = best;
-      argc = arg;
-    } else if (best == big) {
-      det = big;
-      argc = c_lo > 1 ? 1 : arg;
-    } else if (masked_exist) {
-      det = big;
-      argc = c_lo > 1 ? 1 : b + 1;
-    } else {
-      det = best;
-      argc = arg;
-    }
-  } else if (arg >= 0 && best < big) {
-    det = best;
-    argc = arg;
-  } else {
-    det = big;
-    argc = 0;
-  }
-
   const int64_t out = static_cast<int64_t>(b) * rowS + s;
-  const bool take_skip = skip <= det;
-  row[out] = take_skip ? skip : det;
-  C[plane + out] = take_skip ? -1 : argc;
+  ltsp::settle(row + out, C + plane + out, skip, best, arg, c_lo, b, R, static_tile);
 }
 
 template <typename V>

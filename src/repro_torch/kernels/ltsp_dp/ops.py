@@ -2,12 +2,14 @@
 and a size-bucketed batch planner.
 
 The device path is a **complete solver**: :func:`ltsp_dp_tables` (the CUDA
-wavefront, see :mod:`.ltsp_dp`) returns the value table *and* per-cell argmin
-planes; :func:`traceback_detours` replays the argmin planes on the host to
-reconstruct the optimal detour list, exactly like the Python DP's traceback.
+kernels, see :mod:`.ltsp_dp`) returns the value table *and* per-cell argmin
+planes; a traceback replays the argmin planes into the optimal detour list,
+exactly like the Python DP's traceback — on the card
+(:func:`~.ltsp_dp.ltsp_traceback`) on the ``"cuda"`` backend, on the host
+(:func:`traceback_detours`) where whole planes come back anyway.
 
-Two backends build the tables: ``"cuda"`` launches the hand-written kernel
-and needs a CUDA ``device``; ``"torch"`` runs its plain version
+Two backends build the tables: ``"cuda"`` launches the hand-written kernels
+and needs a CUDA ``device``; ``"torch"`` runs the plain version
 (:mod:`.ref`) on any ``device``.  Both give bit-identical planes.  Every
 entry point takes ``backend=`` and ``device=`` (default ``"cuda"`` for both).
 
@@ -80,7 +82,7 @@ import torch
 
 from ...core.instance import Instance, virtual_lb
 from ...core.warm import DenseStore, WarmState, WarmStats, align_warm, warm_from_instance
-from .ltsp_dp import DEFAULT_CAND_TILE, ltsp_dp_tables
+from .ltsp_dp import DEFAULT_CAND_TILE, ltsp_dp_tables, ltsp_traceback
 from .ref import ltsp_dp_tables_ref
 
 __all__ = [
@@ -98,6 +100,18 @@ __all__ = [
     "ltsp_solve_instance_warm",
     "ltsp_solve_batch_warm",
 ]
+
+
+#: bytes the solver entry points have copied from a device to the host
+#: (``HOST_BYTES["copied"]``), for the callers that account for them.
+HOST_BYTES = {"copied": 0}
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host numpy array, counting the bytes of a device copy."""
+    if t.device.type != "cpu":
+        HOST_BYTES["copied"] += t.numel() * t.element_size()
+    return t.cpu().numpy()
 
 
 def _pad_s(S: int) -> int:
@@ -358,6 +372,11 @@ def _solve_packed(
     """One padded device table build; results refer to the *original*
     instances.
 
+    On the ``cuda`` backend without ``capture`` the traceback runs on the
+    card (:func:`~.ltsp_dp.ltsp_traceback`) and only the detours and the
+    root values come to the host; otherwise the whole argmin plane does, and
+    :func:`traceback_detours` walks it there.
+
     ``capture=True`` additionally snapshots each instance's dense value and
     argmin planes into a :class:`~repro_torch.core.warm.DenseStore` (kept in
     the launch's gcd-rescaled units together with ``g``, so lookups
@@ -373,16 +392,29 @@ def _solve_packed(
         cand_tile=cand_tile,
     )
     R = left.shape[1]
-    # the whole argmin plane goes to the host for the traceback
-    C_host = C.cpu().numpy()
-    T_root = T[:, 0, R - 1, 0].cpu().numpy()
-    T_host = T.cpu().numpy() if capture else None
-    del T, C  # free this bucket's device tables before the next one
+    T_root = _to_host(T[:, 0, R - 1, 0])
+    if backend == "cuda" and not capture:
+        # the traceback runs on the card: only the detours come to the host
+        dets_dev, counts_dev = ltsp_traceback(C, x)
+        del T, C  # free this bucket's device tables before the next one
+        dets_all, counts = _to_host(dets_dev), _to_host(counts_dev)
+        if (counts < 0).any():
+            raise RuntimeError("device traceback met an argmin plane that is not a DP's")
+        walks = [[tuple(d) for d in dets_all[i, :counts[i]].tolist()]
+                 for i in range(len(originals))]
+        C_host = T_host = None
+    else:
+        # whole planes go to the host: DenseStore needs them, and the
+        # host walk replays C
+        C_host = _to_host(C)
+        T_host = _to_host(T) if capture else None
+        del T, C  # free this bucket's device tables before the next one
+        x_host = _to_host(x)
+        walks = [traceback_detours(C_host[i], x_host[i]) for i in range(len(originals))]
     out = []
     stores: list[DenseStore | None] = []
-    x_host = x.cpu().numpy()
     for i, (inst, g) in enumerate(zip(originals, gs)):
-        dets = traceback_detours(C_host[i], x_host[i])
+        dets = walks[i]
         # padding only ever skips, so emitted detours stay within the real
         # files; guard the invariant anyway.
         assert all(b < inst.n_req for _, b in dets)
@@ -441,8 +473,8 @@ def ltsp_solve_batch(
     build records its padded bucket shape, the exact real-vs-padded DP cell
     counts, a signature whose fifth field says whether the plain version
     (``backend="torch"``) ran, and (when ``profile.wall`` is set) the host
-    wall time around the build, the copy of ``C`` to the host and the
-    traceback — pure host-side accounting, results unchanged.
+    wall time around the build, the traceback and the copies to the host —
+    pure host-side accounting, results unchanged.
     """
     if not instances:
         return ([], []) if capture else []

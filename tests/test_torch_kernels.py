@@ -20,7 +20,7 @@ import torch
 from repro_torch.core.instance import make_instance as port_make_instance
 from repro_torch.kernels.ltsp_dp import ltsp_dp as port_ltsp_dp
 from repro_torch.kernels.ltsp_dp import ops as port_ops
-from repro_torch.kernels.ltsp_dp.ref import ltsp_dp_tables_ref
+from repro_torch.kernels.ltsp_dp.ref import init_tables, ltsp_dp_tables_ref, tile_schedule
 
 pytestmark = pytest.mark.port
 
@@ -283,12 +283,22 @@ def test_cuda_kernel_matches_plain_version(cuda_device, config, dtype_name):
     *arrays, S = port_ops.prepare_batch(insts, dtype=getattr(torch, dtype_name), B_pad=B_pad,
                                         device=cuda_device)
     kw = dict(S=S, span=span, disjoint=disjoint, cand_tile=cand_tile)
-    before = port_ltsp_dp.LAUNCHES[dtype_name]
+    before = dict(port_ltsp_dp.LAUNCHES)
     T, C = port_ltsp_dp.ltsp_dp_tables(*arrays, device=cuda_device, **kw)
     T_plain, C_plain = ltsp_dp_tables_ref(*arrays, **kw)
     torch.cuda.synchronize()
-    assert port_ltsp_dp.LAUNCHES[dtype_name] - before == arrays[0].shape[1] - 1
+    steps = list(tile_schedule(arrays[0].shape[1], port_ltsp_dp.TILE[dtype_name]))
+    assert port_ltsp_dp.LAUNCHES["near_fold_kernel"] - before["near_fold_kernel"] == sum(
+        kind == "near" for kind, _, _ in steps)
     assert torch.equal(T, T_plain) and torch.equal(C, C_plain)
+    # the per-diagonal kernel, one launch per diagonal
+    T_diag, C_diag = init_tables(arrays[0], arrays[1], arrays[3], S)
+    for d in range(1, arrays[0].shape[1]):
+        port_ltsp_dp.ltsp_dp_wavefront(T_diag, C_diag, *arrays, d, span=span, disjoint=disjoint,
+                                       cand_tile=cand_tile)
+    assert port_ltsp_dp.LAUNCHES["wavefront_kernel"] - before["wavefront_kernel"] == (
+        arrays[0].shape[1] - 1)
+    assert torch.equal(T_diag, T_plain) and torch.equal(C_diag, C_plain)
 
 
 @pytest.mark.cuda
