@@ -3,9 +3,8 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch`` (one ``nvcc``
 per source, all at once) and holds each against its plain torch version: the
-tiled table build (``far_fold_kernel`` and ``near_fold_kernel``), the
-per-diagonal baseline (``wavefront_kernel``) and the device traceback
-(``traceback_kernel``), in int32, float32 and float64.  Then it drives the
+tiled table build (``far_fold_kernel`` and ``near_fold_kernel``) and the
+device traceback (``traceback_kernel``), in int32, float32 and float64.  Then it drives the
 port's main path at the paper's IN2P3 scale: the exact DP solve of every
 ``PAPER_PROFILE`` tape whose padded table fits the card, through
 ``solve_batch(..., ExecutionContext(backend="cuda", numeric_policy="f64"))``,
@@ -76,6 +75,19 @@ def bound_ms(R: int, S: int, B: int, type_name: str, span: int | None,
     t_bytes = (out_bytes + in_bytes) / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[type_name]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def tiled_candidates(R: int, Tb: int) -> tuple[int, int]:
+    """(far, near) detour starts of one unrestricted table per lane under
+    tile ``Tb``: a window of tile diagonal D >= 1 has (D - 1) Tb + 1 far
+    starts, the rest of its b - a starts are near."""
+    far = near = 0
+    for a in range(R):
+        for b in range(a + 1, R):
+            n_far = max(0, (b // Tb - a // Tb - 1) * Tb + 1)
+            far += n_far
+            near += b - a - n_far
+    return far, near
 
 
 def traceback_bound_ms(R: int, B: int) -> tuple[float, str]:
@@ -175,19 +187,14 @@ def main() -> int:
         kw = dict(S=S, span=span, disjoint=disjoint, cand_tile=cand_tile)
         Tk, Ck = ltsp_dp.ltsp_dp_tables(*arrays, device=dev, **kw)
         Tp, Cp = ltsp_dp_tables_ref(*arrays, **kw)
-        Tw, Cw = init_tables(arrays[0], arrays[1], arrays[3], S)
-        for d in range(1, arrays[0].shape[1]):
-            ltsp_dp.ltsp_dp_wavefront(Tw, Cw, *arrays, d, span=span, disjoint=disjoint,
-                                      cand_tile=cand_tile)
         torch.cuda.synchronize()
         max_err["tiled"] = max(max_err["tiled"], diff(Tk, Tp))
         n_cases += 1
-        for what, T, C in (("tiled build", Tk, Ck), ("per-diagonal kernel", Tw, Cw)):
-            if not (torch.equal(T, Tp) and torch.equal(C, Cp)):
-                bad = int(((T != Tp) | (C != Cp)).sum())
-                raise SystemExit(
-                    f"phase 1 FAILED: {what} != plain version ({label}, {dtype}, span={span}, "
-                    f"disjoint={disjoint}, cand_tile={cand_tile}): {bad} cells differ")
+        if not (torch.equal(Tk, Tp) and torch.equal(Ck, Cp)):
+            bad = int(((Tk != Tp) | (Ck != Cp)).sum())
+            raise SystemExit(
+                f"phase 1 FAILED: tiled build != plain version ({label}, {dtype}, span={span}, "
+                f"disjoint={disjoint}, cand_tile={cand_tile}): {bad} cells differ")
         if walk:
             check_traceback(Cp, arrays[2], label)
 
@@ -225,7 +232,7 @@ def main() -> int:
             compare([random_inst(17, 90) for _ in range(2)], dtype, span, disjoint, tile,
                     B_pad=2, label="tiled")
     log(f"phase 1a: {n_small} small cases + {n_cases - n_small} multi-tile cases bit-equal "
-        f"(tiled build and per-diagonal kernel vs plain, int32, float32, float64); "
+        f"(tiled build vs plain, int32, float32, float64); "
         f"traceback kernel == plain walk on {tb_checked} planes")
 
     # every launch of the tiled build against its plain step, from one state
@@ -294,27 +301,32 @@ def main() -> int:
         del Tt, Ct
         if j == 0:
             tiled_ms = events_ms(lambda: ltsp_dp.ltsp_dp_tables(*arrays, device=dev, **kw), reps=3)
-
-            def per_diagonal():
-                T, C = init_tables(arrays[0], arrays[1], arrays[3], S)
-                for d in range(1, R_pad):
-                    ltsp_dp.ltsp_dp_wavefront(T, C, *arrays, d, span=None)
-
-            diag_ms = events_ms(per_diagonal, reps=1)
-            # the split of the tiled build: table set-up, far launches, rest
+            # the split of the tiled build: table set-up and the far launches
+            # are each timed alone (the far launches re-run on the finished
+            # tables, which changes none of their work); the rest is a
+            # difference, not a measurement
             init_ms = events_ms(lambda: init_tables(arrays[0], arrays[1], arrays[3], S), reps=3)
             n_tiles = -(-R_pad // ltsp_dp.TILE["float64"])
             far_ms = events_ms(lambda: [ltsp_dp.ltsp_far_fold(Tk, Ck, *arrays, D, span=None)
                                         for D in range(1, n_tiles)], reps=2)
             b_ms, b_by = bound_ms(R_pad, S, 1, "float64", None, False)
+            # modelled bytes from device memory: the far fold loads 2 * 8 / Tb
+            # bytes per far candidate, the near fold both operands (16 bytes)
+            far_c, near_c = tiled_candidates(R_pad, ltsp_dp.TILE["float64"])
+            far_gb = far_c * S * 16 / ltsp_dp.TILE["float64"] / 1e9
+            near_gb = near_c * S * 16 / 1e9
+            near_ms = tiled_ms - init_ms - far_ms
             timing = {"tape": idx, "R_pad": R_pad, "S_pad": S, "ms": tiled_ms,
-                      "plain_ms": 1e3 * tiled_plain_s, "diag_ms": diag_ms,
-                      "diag_plain_ms": 1e3 * plain_s, "bound_ms": b_ms, "bound_by": b_by}
+                      "plain_ms": 1e3 * tiled_plain_s, "bound_ms": b_ms, "bound_by": b_by}
             log(f"phase 1b: paper tape {idx} ({R_pad}, {S}) f64 dp: tiled build {tiled_ms:.3f} ms "
-                f"(set-up {init_ms:.3f} ms, far launches {far_ms:.3f} ms, near launches "
-                f"{tiled_ms - init_ms - far_ms:.3f} ms), per-diagonal kernel {diag_ms:.3f} ms, "
-                f"bound {b_ms:.3f} ms ({b_by}); plain: tiled {1e3 * tiled_plain_s:.3f} ms, "
-                f"per-diagonal {1e3 * plain_s:.3f} ms")
+                f"(set-up alone {init_ms:.3f} ms, far launches alone {far_ms:.3f} ms, build - "
+                f"set-up - far {near_ms:.3f} ms), bound {b_ms:.3f} ms "
+                f"({b_by}); plain: tiled {1e3 * tiled_plain_s:.3f} ms, per-diagonal "
+                f"{1e3 * plain_s:.3f} ms")
+            log(f"phase 1b: modelled bytes: far fold {far_gb:.3f} GB for {far_c * S} far "
+                f"candidates, {far_gb / far_ms:.3f} TB/s over the far launches alone; near fold "
+                f"{near_gb:.3f} GB for {near_c * S} near candidates, {near_gb / near_ms:.3f} TB/s "
+                f"over build - set-up - far")
         else:
             log(f"phase 1b: paper tape {idx} ({R_pad}, {S}) f64 span={span}: bit-equal")
         del Tk, Ck
@@ -455,13 +467,6 @@ def main() -> int:
         kw = dict(S=S, span=None, disjoint=False, cand_tile=ltsp_dp.DEFAULT_CAND_TILE)
         ltsp_dp.ltsp_dp_tables(*arrays, device=dev, **kw)
         k_ms = events_ms(lambda: ltsp_dp.ltsp_dp_tables(*arrays, device=dev, **kw), reps=2)
-
-        def per_diagonal():
-            T, C = init_tables(arrays[0], arrays[1], arrays[3], S)
-            for d in range(1, shape[0]):
-                ltsp_dp.ltsp_dp_wavefront(T, C, *arrays, d, span=None)
-
-        d_ms = events_ms(per_diagonal, reps=1)
         T, C = ltsp_dp.ltsp_dp_tables(*arrays, device=dev, **kw)
         t_ms = events_ms(lambda: ltsp_dp.ltsp_traceback(C, arrays[2]), reps=3)
         dets, counts = ltsp_dp.ltsp_traceback(C, arrays[2])
@@ -473,20 +478,17 @@ def main() -> int:
         b_ms, b_by = bound_ms(shape[0], shape[1], 1, "float64", None, False)
         n_tapes = len(by_bucket[shape])
         buckets.append({"R_pad": shape[0], "S_pad": shape[1], "tapes": n_tapes,
-                        "kernel_ms": k_ms, "diag_ms": d_ms, "traceback_ms": t_ms,
+                        "kernel_ms": k_ms, "traceback_ms": t_ms,
                         "copy_ms": c_ms, "bound_ms": b_ms, "bound_by": b_by})
-        log(f"  bucket {shape}: {n_tapes} tapes, tiled build {k_ms:.3f} ms (per-diagonal "
-            f"{d_ms:.3f} ms), bound {b_ms:.4f} ms ({b_by}), traceback {t_ms:.4f} ms, "
-            f"copy to host {c_ms:.4f} ms")
+        log(f"  bucket {shape}: {n_tapes} tapes, tiled build {k_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), traceback {t_ms:.4f} ms, copy to host {c_ms:.4f} ms")
     torch.cuda.empty_cache()
     kern_total = sum(b["kernel_ms"] * b["tapes"] for b in buckets) / 1e3
-    diag_total = sum(b["diag_ms"] * b["tapes"] for b in buckets) / 1e3
     rest_total = sum((b["traceback_ms"] + b["copy_ms"]) * b["tapes"] for b in buckets) / 1e3
     phases["5 per-bucket timing"] = time.perf_counter() - t0
     log(f"phase 5: dp main path = {kern_total:.3f} s tiled build + {rest_total:.3f} s traceback "
         f"and copy (per-bucket CUDA events and host clock x tapes) of "
-        f"{phases['3 dp main path']:.3f} s wall; the per-diagonal kernel would take "
-        f"{diag_total:.3f} s")
+        f"{phases['3 dp main path']:.3f} s wall")
 
     for name, secs in phases.items():
         log(f"wall {name}: {secs:.3f} s")

@@ -32,17 +32,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: table type name -> suffix of its C entry points (``ltsp_wavefront_<suffix>`` ...)
+#: table type name -> suffix of its C entry points (``ltsp_far_fold_<suffix>`` ...)
 TYPE_SUFFIX = {"int32": "i32", "float32": "f32", "float64": "f64"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 #: source name -> {C entry point: (argument types, result type)}
 SOURCES: dict[str, dict[str, tuple[list, type]]] = {
-    "ltsp_wavefront": {
-        # T, C, left, right, x, nl, u, B, R, S, d, span, disjoint, static_tile, stream
-        f"ltsp_wavefront_{t}": ([_P] * 7 + [_I] * 7 + [_P], _I) for t in TYPE_SUFFIX.values()
-    },
     "ltsp_tiled": {
         **{f"ltsp_tile_size_{t}": ([], _I) for t in TYPE_SUFFIX.values()},
         # T, C, right, nl, u, B, R, S, D, span, disjoint, stream

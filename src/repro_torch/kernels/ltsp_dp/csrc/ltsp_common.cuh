@@ -1,4 +1,4 @@
-// Shared pieces of the LTSP DP kernels (ltsp_wavefront.cu, ltsp_tiled.cu):
+// Shared pieces of the LTSP DP table kernels (ltsp_tiled.cu):
 // exact arithmetic per table type, the skip term, one detour candidate, and
 // the reference's sentinel rule.
 //

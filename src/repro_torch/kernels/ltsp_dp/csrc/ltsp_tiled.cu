@@ -4,14 +4,25 @@
 // Replaces the TPU kernel of the JAX package, src/repro/kernels/ltsp_dp/
 // ltsp_dp.py: `wavefront_kernel` (:101), launched by `ltsp_dp_wavefront`
 // (:237, the pallas_call at :292) from the driver `ltsp_dp_tables` (:307).
-// What a cell computes is stated in ltsp_wavefront.cu, the per-diagonal form
-// of the same recurrence; its arithmetic lives in ltsp_common.cuh.
 //
-// Why tiles.  The per-diagonal kernel reads both candidate operands of every
-// (cell, c, s) from device memory: 2 * 8 * S * (R^3 - R) / 6 bytes, ~367 GB
-// per (256, 8192) f64 table.  Inside one diagonal each value feeds at most
-// two cells, so there is nothing for shared memory to catch; the reuse is
-// across diagonals (T[a, c] is an operand of every later window holding it).
+// What it computes, for instance i, window (a, b) with a < b and every skip
+// count s in [0, S):
+//   skip  = T[a, b-1, clip(s + x_b, 0, S-1)] + 2(r_b - r_{b-1})(s + nl_a)
+//           + 2(l_b - r_{b-1}) x_b
+//   det_c = T[a, c-1, s] + T[c, b, s] + 2(r_b - r_{c-1})(s + nl_a)
+//           + 2U(s + nl_c),           c in [c_lo, b]
+//   c_lo  = a + 1, raised to b - span under LOGDP, and the band is empty
+//           when a > 0 under SIMPLEDP (disjoint).
+//   T[a, b, s] = min(skip, det);  C[a, b, s] = -1 if skip <= det, else the
+//   smallest minimising c.
+// The arithmetic and the reference's sentinel rule live in ltsp_common.cuh.
+//
+// Why tiles.  Filled one anti-diagonal per launch (the JAX package's
+// schedule), the DP reads both candidate operands of every (cell, c, s) from
+// device memory: 2 * 8 * S * (R^3 - R) / 6 bytes, ~367 GB per (256, 8192)
+// f64 table.  Inside one diagonal each value feeds at most two cells, so
+// there is nothing for shared memory to catch; the reuse is across
+// diagonals (T[a, c] is an operand of every later window holding it).
 //
 // Schedule.  The window triangle (a, b) is cut into TB x TB tiles (A, B),
 // a in block A, b in block B, processed by tile diagonal D = B - A.  For a
@@ -37,7 +48,7 @@
 //      block's lane, which is why this part stays one launch per diagonal.
 // A cell's starts therefore fold as low near, far, high near: ascending c,
 // each part a strict < fold and the parts merged by (value, c), so the
-// smallest minimising c wins exactly as in the per-diagonal fold, and every
+// smallest minimising c wins exactly as in a single ascending fold, and every
 // candidate is formed by the same operations in the same order.  TB = 1 is
 // the per-diagonal schedule (an empty near range), TB >= R a single tile.
 //
@@ -59,9 +70,11 @@ namespace {
 using ltsp::Arith;
 
 // Tile size per table type: a constant of the build, not a knob.  On the
-// H100, 8 beat 12 and 16 for float64 tables (PERF.md): a larger tile cuts
-// the far fold's bytes but grows the near fold's, which reads device memory
-// with no reuse.
+// H100, 8 beat 12 and 16 for float64 tables (tools/tiled_sweep.py, PERF.md):
+// a larger tile cuts the far fold's bytes but grows the near fold's, which
+// reads device memory with no reuse.  The far fold's two stages of 8 starts
+// (65 KB of shared memory for float64) leave room for three blocks per SM;
+// a third stage or 16 starts per stage leave two or one, and were slower.
 template <typename V>
 struct Tile {
   static constexpr int value = 8;

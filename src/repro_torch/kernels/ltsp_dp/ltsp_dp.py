@@ -14,9 +14,6 @@ source's header states what it computes and what bounds it.
   ``csrc/ltsp_tiled.cu``: per tile diagonal one :func:`ltsp_far_fold`
   launch, then one :func:`ltsp_near_fold` launch per cell diagonal inside
   the tiles, all issued by one C call.  This is the main path.
-* :func:`ltsp_dp_wavefront` fills one anti-diagonal per launch
-  (``csrc/ltsp_wavefront.cu``), the JAX package's own schedule; it stays as
-  the baseline of the tiled build.
 * :func:`ltsp_traceback` walks ``C`` on the card (``csrc/ltsp_traceback.cu``)
   so that only the detours, and not the plane, go to the host.
 
@@ -37,14 +34,11 @@ import functools
 import torch
 
 from . import build
-from .ref import (
-    diagonal_update, far_fold, fill_tiled, init_tables, near_update, tile_schedule,
-    traceback_ref,
-)
+from .ref import far_fold, fill_tiled, init_tables, near_update, tile_schedule, traceback_ref
 
 __all__ = [
-    "DEFAULT_CAND_TILE", "TILE", "LAUNCHES", "reset_launches", "ltsp_dp_wavefront",
-    "ltsp_far_fold", "ltsp_near_fold", "ltsp_dp_tables", "ltsp_traceback",
+    "DEFAULT_CAND_TILE", "TILE", "FAR_LANES", "LAUNCHES", "reset_launches", "ltsp_far_fold",
+    "ltsp_near_fold", "ltsp_dp_tables", "ltsp_traceback",
 ]
 
 #: default candidate-chunk height of the JAX kernel's banded scan.  It is
@@ -57,11 +51,15 @@ DEFAULT_CAND_TILE = 128
 #: plain version on the CPU runs the same schedule.
 TILE = {"int32": 8, "float32": 8, "float64": 8}
 
+#: s lanes per block of the far fold (``kLanes`` in ``csrc/ltsp_tiled.cu``):
+#: on a CUDA device a table with more than one tile diagonal needs ``S`` to
+#: be a multiple of it.  The solver pads ``S`` to a multiple of 128.
+FAR_LANES = 32
+
 #: kernel launches per ``__global__`` function since the last
 #: :func:`reset_launches`.
 LAUNCHES: dict[str, int] = {
-    name: 0 for name in ("wavefront_kernel", "far_fold_kernel", "near_fold_kernel",
-                         "traceback_kernel")
+    name: 0 for name in ("far_fold_kernel", "near_fold_kernel", "traceback_kernel")
 }
 
 
@@ -109,6 +107,14 @@ def _check_device(*tensors) -> None:
         raise ValueError("the CUDA kernels need contiguous tensors")
 
 
+def _check_lanes(device: torch.device, name: str, R: int, S: int) -> None:
+    """The far fold stages whole lane slices: on a CUDA device a table with
+    a far launch (``R`` above the tile) needs ``S % FAR_LANES == 0``."""
+    if device.type == "cuda" and R > TILE[name] and S % FAR_LANES:
+        raise ValueError(f"S={S} must be a multiple of {FAR_LANES} for the CUDA table build "
+                         f"at R={R} > tile {TILE[name]}; pad S (the solver pads it to 128)")
+
+
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name)
@@ -136,50 +142,22 @@ def _span_arg(span: int | None) -> int:
     return -1 if span is None else int(span)
 
 
-def ltsp_dp_wavefront(
-    T: torch.Tensor,  # [B, R, R, S] table type, updated in place
-    C: torch.Tensor,  # [B, R, R, S] int32, updated in place
-    left: torch.Tensor,  # [B, R] table type
-    right: torch.Tensor,  # [B, R] table type
-    x: torch.Tensor,  # [B, R] int32
-    nl: torch.Tensor,  # [B, R] table type
-    u: torch.Tensor,  # [B] table type
-    d: int,
-    *,
-    span: int | None,
-    disjoint: bool = False,
-    cand_tile: int = DEFAULT_CAND_TILE,
-) -> None:
-    """Fill diagonal ``d`` of ``T`` and ``C`` for every instance, in place.
-
-    Reads only diagonals ``< d``.  CUDA tensors launch the per-diagonal
-    kernel on the current stream (no synchronisation); CPU tensors run the
-    plain version.
-    """
-    name, B, R, S = _check_tables(T, C, left, right, x, nl, u)
-    if not 1 <= d < R:
-        raise ValueError(f"diagonal d={d} out of range for R={R}")
-    static_tile = R - 1 <= cand_tile
-    if T.device.type == "cpu":
-        diagonal_update(T, C, left, right, x, nl, u, d, S=S, span=span,
-                        disjoint=disjoint, static_tile=static_tile)
-        return
-    _launch(T.device, "ltsp_wavefront", f"ltsp_wavefront_{build.TYPE_SUFFIX[name]}",
-            *(t.data_ptr() for t in (T, C, left, right, x, nl, u)), B, R, S, d,
-            _span_arg(span), int(bool(disjoint)), int(static_tile),
-            shape=f"B={B}, R={R}, S={S}, d={d}")
-    LAUNCHES["wavefront_kernel"] += 1
-
-
 def ltsp_far_fold(T, C, left, right, x, nl, u, D: int, *, span: int | None,
                   disjoint: bool = False) -> None:
     """Far partials of tile diagonal ``D >= 1`` into ``T`` and ``C``, in
     place (see :func:`.ref.far_fold`): one launch of ``far_fold_kernel`` on
-    a CUDA tensor, the plain version on the CPU.  Arguments as for
-    :func:`ltsp_dp_wavefront`."""
+    a CUDA tensor, the plain version on the CPU.
+
+    ``T`` ``[B, R, R, S]`` (table type) and ``C`` (int32, same shape) are
+    updated in place from ``left``, ``right``, ``nl`` ``[B, R]`` (table type),
+    ``x`` ``[B, R]`` (int32) and ``u`` ``[B]`` (table type); ``span`` is the
+    LOGDP clip, ``disjoint`` the SIMPLEDP one.  On a CUDA device ``S`` must
+    be a multiple of :data:`FAR_LANES`.
+    """
     name, B, R, S = _check_tables(T, C, left, right, x, nl, u)
     if not 1 <= D < -(-R // TILE[name]):
         raise ValueError(f"tile diagonal D={D} out of range for R={R}")
+    _check_lanes(T.device, name, R, S)
     if T.device.type == "cpu":
         far_fold(T, C, left, right, x, nl, u, D, Tb=TILE[name], span=span,
                  disjoint=disjoint)
@@ -194,7 +172,9 @@ def ltsp_near_fold(T, C, left, right, x, nl, u, D: int, k: int, *, span: int | N
                    disjoint: bool = False, cand_tile: int = DEFAULT_CAND_TILE) -> None:
     """Finish the cells of tile diagonal ``D`` on cell diagonal ``k`` inside
     their tiles, in place (see :func:`.ref.near_update`): one launch of
-    ``near_fold_kernel`` on a CUDA tensor, the plain version on the CPU."""
+    ``near_fold_kernel`` on a CUDA tensor, the plain version on the CPU.
+    Arguments as for :func:`ltsp_far_fold`; ``cand_tile`` picks the
+    reference's scan form (one static tile when ``R - 1 <= cand_tile``)."""
     name, B, R, S = _check_tables(T, C, left, right, x, nl, u)
     if ("near", D, k) not in _schedule(R, TILE[name]):
         raise ValueError(f"(D={D}, k={k}) is no step of the tiled build for R={R}")
@@ -236,8 +216,10 @@ def ltsp_dp_tables(
     far-fold and near-fold launch is issued by one C call on the current
     stream, on the CPU the plain versions run the same steps.  Inputs are
     tensors on any device (they are moved to ``device``); the table type is
-    ``left``'s.
+    ``left``'s.  On a CUDA device ``S`` must be a multiple of
+    :data:`FAR_LANES` once ``R`` exceeds the tile (any ``S`` on the CPU).
     """
+    _check_lanes(torch.device(device), _type_name(left.dtype), left.shape[-1], S)
     left, right, x, nl, u = (t.to(device).contiguous() for t in (left, right, x, nl, u))
     T, C = init_tables(left, right, nl, S)
     name, B, R, S = _check_tables(T, C, left, right, x, nl, u)

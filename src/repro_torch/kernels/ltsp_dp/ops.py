@@ -673,7 +673,9 @@ def ltsp_solve_batch_warm(
 def ltsp_dp_table(left, right, x, nl, u_turn: float, S: int, device="cuda"):
     """Dense single-instance DP value table (the table type is ``left``'s).
 
-    On a CUDA ``device`` the kernel builds it, on the CPU the plain version.
+    On a CUDA ``device`` the kernels build it (``S`` a multiple of
+    ``ltsp_dp.FAR_LANES`` once ``R`` exceeds the tile), on the CPU the plain
+    version.
     """
     T, _ = ltsp_dp_tables(
         left[None], right[None], x[None], nl[None],
@@ -683,7 +685,8 @@ def ltsp_dp_table(left, right, x, nl, u_turn: float, S: int, device="cuda"):
 
 
 def ltsp_opt(left, right, x, nl, u_turn: float, m: float, S: int, device="cuda"):
-    """Optimal LTSP objective (float): ``T[0, R-1, 0] + VirtualLB``."""
+    """Optimal LTSP objective (float): ``T[0, R-1, 0] + VirtualLB``; ``S``
+    as for :func:`ltsp_dp_table`."""
     T = ltsp_dp_table(left, right, x, nl, u_turn, S, device=device)
     f32 = torch.float32
     left = left.to(T.device)

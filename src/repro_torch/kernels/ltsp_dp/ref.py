@@ -10,11 +10,12 @@ which can only be hit from cells that are themselves unreachable from the
 root ``(0, R-1, 0)``.
 
 This module holds the plain versions of the hand-written CUDA kernels in
-``csrc/``: :func:`diagonal_update` computes what one launch of the
-per-diagonal kernel (``ltsp_wavefront.cu``) computes, :func:`far_fold` and
-:func:`near_update` what one launch of each kernel of the tiled build
-(``ltsp_tiled.cu``) computes, and :func:`traceback_ref` what the device
-traceback (``ltsp_traceback.cu``) returns.  They share the operation order,
+``csrc/``: :func:`far_fold` and :func:`near_update` compute what one launch
+of each kernel of the tiled build (``ltsp_tiled.cu``) computes, and
+:func:`traceback_ref` what the device traceback (``ltsp_traceback.cu``)
+returns.  :func:`diagonal_update` fills one whole anti-diagonal, the JAX
+package's own schedule, from which :func:`ltsp_dp_tables_ref` builds the
+tables every other version is held against.  They share the operation order,
 the clamp and masks, the sentinels and the tie-break (skip wins ties; among
 detours the smallest ``c`` wins), so each agrees with its kernel bit for
 bit.  They run on any torch device: the CPU tests use them, the ``"torch"``
@@ -125,7 +126,7 @@ def _settle(T, C, left, right, x, nl, a, b, best, arg, c_lo, static_tile: bool) 
 
     ``static_tile`` selects which of the JAX kernel's two scan forms decides
     the cells whose live candidates all reach the sentinel (see
-    ``csrc/ltsp_wavefront.cu``); it never changes any other cell.
+    ``csrc/ltsp_common.cuh``); it never changes any other cell.
     """
     R, S = left.shape[1], T.shape[-1]
     dev, dtype = T.device, T.dtype
@@ -177,9 +178,9 @@ def diagonal_update(
     S: int, span: int | None, disjoint: bool, static_tile: bool,
 ) -> None:
     """Write ``T[:, a, a+d, :]`` and ``C[:, a, a+d, :]`` for every window
-    start ``a`` in place, reading only diagonals ``< d``: the plain version
-    of one launch of the per-diagonal kernel (``csrc/ltsp_wavefront.cu``).
-    Detour starts fold in ascending ``c``."""
+    start ``a`` in place, reading only diagonals ``< d``: one step of the
+    JAX package's per-diagonal schedule.  Detour starts fold in ascending
+    ``c``."""
     R = left.shape[1]
     a = torch.arange(R - d, device=T.device)
     b = a + d

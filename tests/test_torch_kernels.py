@@ -20,7 +20,7 @@ import torch
 from repro_torch.core.instance import make_instance as port_make_instance
 from repro_torch.kernels.ltsp_dp import ltsp_dp as port_ltsp_dp
 from repro_torch.kernels.ltsp_dp import ops as port_ops
-from repro_torch.kernels.ltsp_dp.ref import init_tables, ltsp_dp_tables_ref, tile_schedule
+from repro_torch.kernels.ltsp_dp.ref import ltsp_dp_tables_ref, tile_schedule
 
 pytestmark = pytest.mark.port
 
@@ -254,13 +254,14 @@ def test_wrapper_validates_its_inputs():
     T = torch.zeros((1, 2, 2, S), dtype=torch.int32)
     C = torch.full((1, 2, 2, S), -1, dtype=torch.int32)
     with pytest.raises(ValueError, match="x must be"):
-        port_ltsp_dp.ltsp_dp_wavefront(T, C, left, right, x.float(), nl, u, 1, span=None)
+        port_ltsp_dp.ltsp_near_fold(T, C, left, right, x.float(), nl, u, 0, 1, span=None)
     with pytest.raises(ValueError, match="C must be"):
-        port_ltsp_dp.ltsp_dp_wavefront(T, C.float(), left, right, x, nl, u, 1, span=None)
+        port_ltsp_dp.ltsp_near_fold(T, C.float(), left, right, x, nl, u, 0, 1, span=None)
     with pytest.raises(ValueError, match="out of range"):
-        port_ltsp_dp.ltsp_dp_wavefront(T, C, left, right, x, nl, u, 2, span=None)
+        port_ltsp_dp.ltsp_far_fold(T, C, left, right, x, nl, u, 1, span=None)
     with pytest.raises(TypeError, match="unsupported table type"):
-        port_ltsp_dp.ltsp_dp_wavefront(T.to(torch.int16), C, left, right, x, nl, u, 1, span=None)
+        port_ltsp_dp.ltsp_near_fold(T.to(torch.int16), C, left, right, x, nl, u, 0, 1,
+                                    span=None)
 
 
 # ---------------------------------------------------------------------------
@@ -291,14 +292,6 @@ def test_cuda_kernel_matches_plain_version(cuda_device, config, dtype_name):
     assert port_ltsp_dp.LAUNCHES["near_fold_kernel"] - before["near_fold_kernel"] == sum(
         kind == "near" for kind, _, _ in steps)
     assert torch.equal(T, T_plain) and torch.equal(C, C_plain)
-    # the per-diagonal kernel, one launch per diagonal
-    T_diag, C_diag = init_tables(arrays[0], arrays[1], arrays[3], S)
-    for d in range(1, arrays[0].shape[1]):
-        port_ltsp_dp.ltsp_dp_wavefront(T_diag, C_diag, *arrays, d, span=span, disjoint=disjoint,
-                                       cand_tile=cand_tile)
-    assert port_ltsp_dp.LAUNCHES["wavefront_kernel"] - before["wavefront_kernel"] == (
-        arrays[0].shape[1] - 1)
-    assert torch.equal(T_diag, T_plain) and torch.equal(C_diag, C_plain)
 
 
 @pytest.mark.cuda
@@ -334,4 +327,4 @@ def test_cuda_wrapper_rejects_mixed_devices(cuda_device):
     T = torch.zeros((1, 2, 2, S), dtype=torch.int32, device=cuda_device)
     C = torch.full((1, 2, 2, S), -1, dtype=torch.int32)
     with pytest.raises(ValueError, match="one device"):
-        port_ltsp_dp.ltsp_dp_wavefront(T, C, left, right, x, nl, u, 1, span=None)
+        port_ltsp_dp.ltsp_near_fold(T, C, left, right, x, nl, u, 0, 1, span=None)

@@ -171,6 +171,29 @@ def test_step_wrappers_validate_their_steps():
         port_ltsp_dp.ltsp_traceback(C[0], arrays[2])
 
 
+def test_cuda_table_build_refuses_ragged_lane_slices():
+    """The far fold stages whole lane slices, so a CUDA table build with more
+    than one tile diagonal refuses an ``S`` that is no multiple of
+    ``FAR_LANES``, naming it, before any tensor moves to the card; the plain
+    version on the CPU takes any ``S``."""
+    rng = np.random.default_rng([SEED, 80])
+    inst = random_port_instance(rng, 12, 16)
+    *arrays, S = port_ops.prepare_batch([inst], device="cpu")
+    ragged = S + 1
+    assert ragged % port_ltsp_dp.FAR_LANES and arrays[0].shape[1] > port_ltsp_dp.TILE["int32"]
+    with pytest.raises(ValueError, match=f"S={ragged} must be a multiple of 32"):
+        port_ltsp_dp.ltsp_dp_tables(*arrays, S=ragged, device="cuda")
+    with pytest.raises(ValueError, match="must be a multiple of 32"):
+        port_ops.ltsp_dp_table(*(t[0] for t in arrays[:4]), float(inst.u_turn), ragged)
+    T, C = port_ltsp_dp.ltsp_dp_tables(*arrays, S=ragged, device="cpu")
+    T_ref, C_ref = port_ref.ltsp_dp_tables_ref(*arrays, S=ragged)
+    assert torch.equal(T, T_ref) and torch.equal(C, C_ref)
+    # a single tile has no far launch, and a padded S passes
+    cuda = torch.device("cuda")
+    port_ltsp_dp._check_lanes(cuda, "float64", port_ltsp_dp.TILE["float64"], ragged)
+    port_ltsp_dp._check_lanes(cuda, "float64", 256, 8192)
+
+
 # ---------------------------------------------------------------------------
 # the traceback in the kernel's layout
 # ---------------------------------------------------------------------------
