@@ -98,6 +98,310 @@ def traceback_bound_ms(R: int, B: int) -> tuple[float, str]:
     return 1e3 * moved / HBM_BYTES_PER_S, "bytes"
 
 
+
+#: the reference serving tests' seed (demo-library scale, phase 6)
+SERVE_SEED = 20260731
+#: phase 7: paper tapes whose requested files make the library's cartridges,
+#: and the seeded request trace served against them (see PERF.md section 4)
+IN2P3_TAPES = 8
+IN2P3_NREQ = (64, 256)
+IN2P3_TRACE = dict(n_requests=70_000, mean_interarrival=2_500, seed=SERVE_SEED, skew=0.6)
+IN2P3_SERVE = dict(window=40_000_000, n_drives=4)
+#: mount, unmount and seek to the load point: 90 s, 60 s, 20 s at 300 MB/s
+IN2P3_DRIVE_COSTS = dict(mount=27_000, unmount=18_000, load_seek=6_000)
+#: the paper's Table 1 ranges of requested files and of requests per tape
+PAPER_NREQ, PAPER_N = (31, 852), (1_182, 15_477)
+
+
+def serving_exactness(dev: str) -> None:
+    """Phase 6: serve the reference's serving scenarios on ``cuda`` and on
+    ``python`` and require the same timelines, summaries and journals.
+
+    The cell counters (``cells_evaluated``/``cells_reused``) count dense
+    device cells on the device backends and real DP cells on ``python``, in
+    the JAX package too, so they are held against ``torch`` on the same card
+    instead.
+    """
+    import dataclasses
+    import shutil
+
+    from repro_torch.data.traces import qos_poisson_trace, to_requests
+    from repro_torch.kernels.ltsp_dp import ltsp_dp
+    from repro_torch.obs import Observability
+    from repro_torch.serving import (
+        DriveCosts, FaultPlan, RetryPolicy, SolverFault, demo_library, poisson_trace,
+        recover_server, seeded_fault_plan, serve_trace,
+    )
+
+    costs = DriveCosts(mount=150_000, unmount=60_000, load_seek=30_000)
+    jdir = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(jdir, ignore_errors=True)
+    jdir.mkdir(parents=True)
+
+    def trace(n, rate):
+        return poisson_trace(demo_library(SERVE_SEED), n, rate, seed=SERVE_SEED)
+
+    records = qos_poisson_trace(demo_library(SERVE_SEED), n_requests=200,
+                                mean_interarrival=250_000, seed=SERVE_SEED,
+                                tightness=8_000_000)
+    qtrace, qos = to_requests(records, demo_library(SERVE_SEED))
+    ftrace = trace(200, 100_000)
+    pool = dict(window=400_000, n_drives=2, drive_costs=costs)
+    scenarios = {
+        "accumulate": (trace(200, 250_000), "accumulate", lambda b: dict(window=400_000)),
+        "batched-2-drives": (trace(200, 250_000), "batched", lambda b: pool),
+        "edf-global-qos": (qtrace, "edf-global", lambda b: dict(pool, qos=qos)),
+        "preempt-warm": (trace(240, 150_000), "preempt",
+                         lambda b: dict(window=400_000, warm_start=True)),
+        "seeded-faults": (ftrace, "accumulate", lambda b: dict(
+            pool, retry=RetryPolicy(), faults=seeded_fault_plan(
+                demo_library(SERVE_SEED), ftrace, seed=3, n_drives=2,
+                solver_faults=2, backend=b))),
+    }
+
+    def serve(name, backend, device=dev, obs=None, **extra):
+        tr, admission, kw = scenarios[name]
+        lib = demo_library(SERVE_SEED)
+        path = jdir / f"{name}-{backend}-{device}.jsonl"
+        path.unlink(missing_ok=True)  # the journal appends
+        report = serve_trace(lib, tr, admission, policy="dp", journal=str(path),
+                             context=lib.context.replace(backend=backend, device=device, obs=obs,
+                                                         numeric_policy="f64"),
+                             **dict(kw(backend), **extra))
+        return report, path
+
+    cells = ("cells_evaluated", "cells_reused", "cells_per_batch")
+
+    def timeline(report, with_cells=False):
+        summary = {k: v for k, v in report.summary().items()
+                   if k != "backend" and (with_cells or k not in cells)}
+        batches = [dataclasses.astuple(dataclasses.replace(
+            b, degraded_to=None if b.degraded_to is None else "fallback",
+            **({} if with_cells else {"cells_evaluated": 0, "cells_reused": 0})))
+            for b in report.batches]
+        return (list(summary.items()), [dataclasses.astuple(r) for r in report.served],
+                [dataclasses.astuple(f) for f in report.failed], batches)
+
+    launches: dict[str, int] = {}
+    for name in scenarios:
+        t0 = time.perf_counter()
+        ltsp_dp.reset_launches()
+        cuda, cuda_path = serve(name, "cuda")
+        for k, v in ltsp_dp.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        t_cuda = time.perf_counter() - t0
+        py, py_path = serve(name, "python")
+        if timeline(cuda) != timeline(py):
+            raise SystemExit(f"phase 6 FAILED: {name}: cuda timeline or summary != python")
+        if cuda_path.read_bytes() != py_path.read_bytes():
+            raise SystemExit(f"phase 6 FAILED: {name}: cuda journal != python journal")
+        plain, _ = serve(name, "torch")
+        if timeline(cuda, with_cells=True) != timeline(plain, with_cells=True):
+            raise SystemExit(f"phase 6 FAILED: {name}: cuda cell counters != torch on the card")
+        if any(b.degraded_to is not None for b in cuda.batches):
+            raise SystemExit(f"phase 6 FAILED: {name}: cuda fell back with no fault on cuda")
+        log(f"phase 6: {name}: {cuda.n_served} served, {len(cuda.batches)} batches, cuda == "
+            f"python (timelines, summaries, journal {len(cuda_path.read_bytes())} bytes), cells "
+            f"{cuda.cells_evaluated} evaluated / {cuda.cells_reused} reused == torch on the "
+            f"card; cuda run {t_cuda:.3f} s")
+        if name == "preempt-warm" and cuda.cells_reused == 0:
+            raise SystemExit("phase 6 FAILED: the warm run reused no cell")
+
+    # recovery from a torn journal, on the card
+    full, path = serve("seeded-faults", "cuda")
+    data = path.read_bytes()
+    cut = jdir / "seeded-faults-cut.jsonl"
+    cut.write_bytes(data[: len(data) // 2])
+    tr, admission, kw = scenarios["seeded-faults"]
+    lib = demo_library(SERVE_SEED)
+    rec = recover_server(lib, tr, str(cut), admission=admission, policy="dp",
+                         context=lib.context.replace(backend="cuda", device=dev,
+                                                     numeric_policy="f64"),
+                         **kw("cuda"))
+    if cut.read_bytes() != data or timeline(rec, True) != timeline(full, True):
+        raise SystemExit("phase 6 FAILED: recover_server on cuda is not byte-identical")
+    # a fault that exhausts the cuda tier degrades to torch, same schedules
+    down, _ = serve("accumulate", "cuda", retry=RetryPolicy(),
+                    faults=FaultPlan(solver_faults=(SolverFault("cuda", count=3),)))
+    py, _ = serve("accumulate", "python")
+    if ([dataclasses.astuple(r) for r in down.served] != [dataclasses.astuple(r) for r in py.served]
+            or down.fault_stats["fallbacks"] < 1 or down.batches[0].degraded_to != "torch"):
+        raise SystemExit("phase 6 FAILED: cuda -> torch degradation changed the timeline")
+    # observability on the card: the run is unchanged, the kernel profile fills
+    obs = Observability.enabled(wall=True)
+    bare, _ = serve("batched-2-drives", "cuda")
+    seen, _ = serve("batched-2-drives", "cuda", obs=obs)
+    prof = obs.kernel
+    if (timeline(seen, True) != timeline(bare, True) or not prof.launches
+            or any(r.interpret or not r.wall_ns for r in prof.launches)
+            or obs.metrics.counter("batches_total") != len(seen.batches)):
+        raise SystemExit("phase 6 FAILED: an observed cuda run differs or recorded nothing")
+    log(f"phase 6: recover_server from a journal cut at {len(data) // 2} of {len(data)} bytes "
+        f"is byte-identical; cuda -> torch after 3 faults ({down.fault_stats['fallbacks']} "
+        f"fallbacks) serves python's timeline; observed run == bare run, "
+        f"{len(prof.launches)} profiled launches; cuda launches {launches}")
+    if launches["near_fold_kernel"] == 0:
+        raise SystemExit("phase 6 FAILED: the cuda runs launched no near_fold_kernel")
+    shutil.rmtree(jdir, ignore_errors=True)
+
+
+def in2p3_serve() -> dict:
+    """Phase 7's server options (besides policy, context and verify)."""
+    from repro_torch.serving import DriveCosts
+
+    return dict(IN2P3_SERVE, drive_costs=DriveCosts(**IN2P3_DRIVE_COSTS))
+
+
+def in2p3_library(paper: list, u_turn: int, context):
+    """Phase 7's library: one cartridge per paper tape of :data:`IN2P3_NREQ`
+    (the first :data:`IN2P3_TAPES`), holding that tape's requested files,
+    their sizes scaled in proportion to fill the 20 TB cartridge exactly, so
+    no cartridge shares files with another.  Returns ``(library, tapes)``."""
+    import numpy as np
+
+    from repro_torch.data import PAPER_PROFILE
+    from repro_torch.storage.tape import TapeLibrary
+
+    cap = PAPER_PROFILE.tape_capacity
+    lo, hi = IN2P3_NREQ
+    tapes = [i for i, inst in enumerate(paper) if lo < inst.n_req <= hi][:IN2P3_TAPES]
+    lib = TapeLibrary(capacity_per_tape=cap, u_turn=u_turn, context=context)
+    for k, i in enumerate(tapes):
+        sizes = (paper[i].right - paper[i].left).astype(np.int64)
+        sizes = sizes * cap // int(sizes.sum())
+        sizes[-1] += cap - int(sizes.sum())
+        for f, size in enumerate(sizes.tolist()):
+            lib.store(f"c{k}f{f:03d}", int(size))
+    if len(lib.tapes) != len(tapes):
+        raise SystemExit("phase 7 FAILED: a cartridge holds files of two paper tapes")
+    return lib, tapes
+
+
+def in2p3_serving(paper: list, u_turn: int, dev: str) -> None:
+    """Phase 7: serve an IN2P3-scale request trace on ``cuda``, timed.
+
+    The library is :func:`in2p3_library`'s.  The table build, the copies to
+    the host, the traceback, the server's solves and its verify are wrapped
+    with timers for the run; the wrappers call the originals unchanged.
+    """
+    import collections
+    import resource
+
+    import torch
+
+    from repro_torch.core import ExecutionContext
+    from repro_torch.kernels.ltsp_dp import ltsp_dp, ops
+    from repro_torch.serving import poisson_trace, serve_trace
+    from repro_torch.serving import queue as squeue
+
+    lib, tapes = in2p3_library(paper, u_turn, ExecutionContext(
+        backend="cuda", numeric_policy="f64", device=dev))
+    trace = poisson_trace(lib, **IN2P3_TRACE)
+    log(f"phase 7: library of {len(tapes)} cartridges from paper tapes {tapes} "
+        f"(n_req {[paper[i].n_req for i in tapes]}), U = {u_turn}; trace {IN2P3_TRACE}, "
+        f"{IN2P3_SERVE}")
+
+    events, host = [], collections.defaultdict(float)
+    dispatch = []
+    originals = (ops.ltsp_dp_tables, ops._to_host, ops.traceback_detours,
+                 squeue.solve_warm, squeue.verify_schedule)
+
+    def tables(*args, **kwargs):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        out = originals[0](*args, **kwargs)
+        stop.record()
+        stop.synchronize()
+        host["build"] += time.perf_counter() - t1
+        events.append((start, stop))
+        return out
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            t1 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            host[key] += time.perf_counter() - t1
+            return out
+        return wrapper
+
+    def solve(inst, **kwargs):
+        before = dict(host)
+        t1 = time.perf_counter()
+        out = originals[3](inst, **kwargs)
+        dispatch.append((inst, time.perf_counter() - t1,
+                         {k: host[k] - before.get(k, 0.0) for k in host}))
+        return out
+
+    ops.ltsp_dp_tables, ops._to_host = tables, timed("copy", originals[1])
+    ops.traceback_detours, squeue.solve_warm = timed("traceback", originals[2]), solve
+    squeue.verify_schedule = timed("verify", originals[4])
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    host_before = ops.HOST_BYTES["copied"]
+    try:
+        ltsp_dp.reset_launches()
+        t0 = time.perf_counter()
+        report = serve_trace(lib, trace, "accumulate", policy="dp", context=lib.context, verify=True,
+                             warm_start=False, **in2p3_serve())
+        wall = time.perf_counter() - t0
+        launches = dict(ltsp_dp.LAUNCHES)
+    finally:
+        (ops.ltsp_dp_tables, ops._to_host, ops.traceback_detours,
+         squeue.solve_warm, squeue.verify_schedule) = originals
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    host_bytes = ops.HOST_BYTES["copied"] - host_before
+
+    if report.n_served != len(trace):
+        raise SystemExit(f"phase 7 FAILED: served {report.n_served} of {len(trace)}")
+    if report.backend != "cuda":
+        raise SystemExit(f"phase 7 FAILED: served on {report.backend}, not cuda")
+    for b in report.batches:
+        if not b.verified or b.solver_cost != b.replay_cost:
+            raise SystemExit(f"phase 7 FAILED: {b.tape_id} schedule cost != replay_schedule")
+    n_fallbacks = sum(b.degraded_to is not None for b in report.batches)
+    if n_fallbacks or not launches["far_fold_kernel"] or not launches["near_fold_kernel"]:
+        raise SystemExit(f"phase 7 FAILED: fallbacks {n_fallbacks}, launches {launches}")
+    if len(dispatch) != len(report.batches) or len(events) != len(dispatch):
+        raise SystemExit("phase 7 FAILED: a dispatch did not build its tables on the card")
+
+    build_ms = [start.elapsed_time(stop) for start, stop in events]
+    rows = []
+    for (inst, secs, parts), kernel_ms in zip(dispatch, build_ms):
+        R_pad, S_pad = ops.bucket_shape(inst)
+        rows.append({"R_pad": R_pad, "S_pad": S_pad, "n_req": inst.n_req, "n": inst.n,
+                     "solve_ms": 1e3 * secs, "build_ms": kernel_ms,
+                     "copy_ms": 1e3 * parts.get("copy", 0.0),
+                     "traceback_ms": 1e3 * parts.get("traceback", 0.0),
+                     "other_ms": 1e3 * (secs - parts.get("build", 0.0) - parts.get("copy", 0.0)
+                                        - parts.get("traceback", 0.0))})
+    hist = collections.Counter((r["R_pad"], r["S_pad"]) for r in rows)
+    r_pads = sorted(r["R_pad"] for r in rows)
+    inside = sum(PAPER_NREQ[0] <= r["n_req"] <= PAPER_NREQ[1] and PAPER_N[0] <= r["n"] <= PAPER_N[1]
+                 for r in rows)
+    log(f"phase 7: {len(rows)} dispatches, (R_pad, S_pad) histogram "
+        f"{sorted(hist.items())}; n_req {min(r['n_req'] for r in rows)}-"
+        f"{max(r['n_req'] for r in rows)}, n {min(r['n'] for r in rows)}-"
+        f"{max(r['n'] for r in rows)}; {inside} of {len(rows)} inside the paper's Table 1 "
+        f"ranges (n_req {PAPER_NREQ}, n {PAPER_N})")
+    for r in rows:
+        log(f"  dispatch ({r['R_pad']}, {r['S_pad']}) n_req {r['n_req']} n {r['n']}: solve "
+            f"{r['solve_ms']:.3f} ms = build {r['build_ms']:.3f} (CUDA events) + copy to host "
+            f"{r['copy_ms']:.3f} + host traceback {r['traceback_ms']:.3f} + other "
+            f"{r['other_ms']:.3f} (DenseStore copies, packing, guards)")
+    if r_pads[len(r_pads) // 2] < 128 or r_pads.count(256) < 3:
+        raise SystemExit(f"phase 7 FAILED: dispatch sizes {r_pads} miss the targets")
+    solve_s = sum(r["solve_ms"] for r in rows) / 1e3
+    other_s = solve_s - host["build"] - host["copy"] - host["traceback"]
+    log(f"phase 7: {report.n_served} requests served in {wall:.3f} s wall: table build "
+        f"{sum(build_ms) / 1e3:.3f} s (CUDA events), copies of T/C to the host "
+        f"{host['copy']:.3f} s, DenseStore copies and packing {other_s:.3f} s, "
+        f"host traceback {host['traceback']:.3f} s, verify {host['verify']:.3f} s, "
+        f"rest of the event loop {wall - solve_s - host['verify']:.3f} s")
+    log(f"phase 7: host bytes {host_bytes} ({host_bytes / 2**30:.3f} GiB), peak host RSS "
+        f"{rss1 / 2**20:.3f} GiB (before the phase {rss0 / 2**20:.3f} GiB), fallbacks 0, "
+        f"launches {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -489,6 +793,16 @@ def main() -> int:
     log(f"phase 5: dp main path = {kern_total:.3f} s tiled build + {rest_total:.3f} s traceback "
         f"and copy (per-bucket CUDA events and host clock x tapes) of "
         f"{phases['3 dp main path']:.3f} s wall")
+
+    # ---- phase 6: serving exactness on the card ----------------------------
+    t0 = time.perf_counter()
+    serving_exactness(dev)
+    phases["6 serving exactness"] = time.perf_counter() - t0
+
+    # ---- phase 7: an IN2P3-scale trace served on the card, timed -------------
+    t0 = time.perf_counter()
+    in2p3_serving(paper, u_half, dev)
+    phases["7 IN2P3-scale serving"] = time.perf_counter() - t0
 
     for name, secs in phases.items():
         log(f"wall {name}: {secs:.3f} s")

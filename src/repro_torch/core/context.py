@@ -37,8 +37,12 @@ a dozen signatures.  :class:`ExecutionContext` bundles all of it:
   count that keeps per-tick policy choices from flapping.  ``None``
   (default) prices nothing and charges nothing — every pre-budget timeline
   is reproduced bit for bit;
-* ``obs`` — reserved for the observability bundle.  The port has no
-  observability layer yet, so it must stay ``None`` (anything else raises).
+* ``obs`` — an optional :class:`~repro_torch.obs.Observability` bundle
+  (tracer + metrics registry + kernel profile, see :mod:`repro_torch.obs`):
+  instrumentation hooks throughout the solver, cache, drive pool and serving
+  loop record into it.  ``None`` (default) records nothing, and every hook
+  hands over already-computed exact integers, so instrumented and
+  uninstrumented runs are bit-identical.
 
 Contexts are frozen: derive variants with :meth:`ExecutionContext.replace`::
 
@@ -61,6 +65,7 @@ import warnings
 from typing import TYPE_CHECKING
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard (solver imports us)
+    from ..obs import Observability
     from .cache import CacheBackend
 
 __all__ = [
@@ -196,7 +201,7 @@ class ExecutionContext:
     numeric_policy: str = "strict"
     budget: ComputeBudget | None = None
     fleet: FleetOptions | None = None
-    obs: None = None
+    obs: "Observability | None" = None
     device: str = "cuda"
 
     def __post_init__(self) -> None:
@@ -216,10 +221,14 @@ class ExecutionContext:
         if self.fleet is not None and not isinstance(self.fleet, FleetOptions):
             raise TypeError(f"fleet must be a FleetOptions, got {self.fleet!r}")
         if self.obs is not None:
-            raise TypeError(
-                f"obs must be None: the port has no observability layer yet "
-                f"(got {self.obs!r})"
-            )
+            # lazy import: repro_torch.obs pulls in serving helpers at call
+            # time, and contexts are constructed during core package import
+            from ..obs import Observability
+
+            if not isinstance(self.obs, Observability):
+                raise TypeError(
+                    f"obs must be an Observability bundle, got {self.obs!r}"
+                )
         if not isinstance(self.device, str) or not self.device:
             raise TypeError(f"device must be a torch device string, got {self.device!r}")
 

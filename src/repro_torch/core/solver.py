@@ -356,6 +356,9 @@ class SolveCache:
         self.misses = 0
         self._store: OrderedDict[tuple, tuple] = OrderedDict()
         self._warm: OrderedDict[tuple, object] = OrderedDict()
+        # observability sink (the serving loop points this at the context's
+        # bundle; None records nothing and the counters above stay canonical)
+        self.obs = None
 
     @staticmethod
     def key(
@@ -393,9 +396,13 @@ class SolveCache:
         entry = self._store.get(key)
         if entry is None:
             self.misses += 1
+            if self.obs is not None:
+                self.obs.inc("cache_misses_total", cache=type(self).__name__)
             return None
         self._store.move_to_end(key)
         self.hits += 1
+        if self.obs is not None:
+            self.obs.inc("cache_hits_total", cache=type(self).__name__)
         cost, detours = entry
         return SolveResult(policy, backend, cost, [tuple(d) for d in detours])
 
@@ -415,6 +422,8 @@ class SolveCache:
         )
         while len(self._store) > self.maxsize:
             self._store.popitem(last=False)
+            if self.obs is not None:
+                self.obs.inc("cache_evictions_total", cache=type(self).__name__)
 
     # -- warm-state side-table (advisory, in-memory only) ---------------------
     def get_warm(self, key: tuple):
@@ -473,6 +482,8 @@ def _device_kwargs(ctx: ExecutionContext, disjoint: bool = False) -> dict:
         kwargs["disjoint"] = True
     if ctx.cand_tile is not None:
         kwargs["cand_tile"] = ctx.cand_tile
+    if ctx.obs is not None and ctx.obs.kernel is not None:
+        kwargs["profile"] = ctx.obs.kernel
     return kwargs
 
 
@@ -910,6 +921,11 @@ def solve_warm(
     if memo is not None:
         hit = memo.get(inst, policy, ctx.backend, ctx.numeric_policy, ctx.cand_tile)
         if hit is not None:
+            if ctx.obs is not None:
+                ctx.obs.inc(
+                    "solves_total", policy=policy, backend=ctx.backend,
+                    mode="cache",
+                )
             return hit, warm, WarmStats(mode="cache")
     if getattr(solver, "supports_warm", False):
         res, new_warm, stats = solver.solve_warm(inst, ctx, warm=warm)
@@ -919,6 +935,11 @@ def solve_warm(
         )
     if memo is not None:
         memo.put(inst, policy, ctx.backend, res, ctx.numeric_policy, ctx.cand_tile)
+    if ctx.obs is not None:
+        ctx.obs.inc(
+            "solves_total", policy=policy, backend=ctx.backend, mode=stats.mode
+        )
+        ctx.obs.observe("solve_cells", stats.cells_evaluated, policy=policy)
     return res, new_warm, stats
 
 
@@ -964,6 +985,12 @@ def solve_batch_warm(
                 memo.put(instances[i], policy, ctx.backend, res,
                          ctx.numeric_policy, ctx.cand_tile)
             results[i], new_warms[i], stats[i] = res, w, st
+    if ctx.obs is not None:
+        for st in stats:
+            ctx.obs.inc(
+                "solves_total", policy=policy, backend=ctx.backend, mode=st.mode
+            )
+            ctx.obs.observe("solve_cells", st.cells_evaluated, policy=policy)
     return results, new_warms, stats  # type: ignore[return-value]
 
 
@@ -1011,6 +1038,10 @@ def solve_warm_degraded(
                 continue
             if failed:
                 new_warm = None
+            if ctx.obs is not None and failed:
+                ctx.obs.inc("solver_faults_total", len(failed))
+                if b != ctx.backend:
+                    ctx.obs.inc("solver_fallbacks_total", backend=b)
             return res, new_warm, stats, FallbackRecord(
                 requested=ctx.backend, used=b, failed=tuple(failed)
             )
@@ -1057,6 +1088,10 @@ def solve_batch_warm_degraded(
                 continue
             if failed:
                 new_warms = [None] * len(instances)
+            if ctx.obs is not None and failed:
+                ctx.obs.inc("solver_faults_total", len(failed))
+                if b != ctx.backend:
+                    ctx.obs.inc("solver_fallbacks_total", backend=b)
             return results, new_warms, stats, FallbackRecord(
                 requested=ctx.backend, used=b, failed=tuple(failed)
             )

@@ -14,6 +14,16 @@ from .paper_instances import (
     simpledp_worst_case,
     logdp_worst_case,
 )
+from .traces import (
+    DEFAULT_QOS_CLASSES,
+    TRACE_SCHEMA,
+    TraceRecord,
+    qos_poisson_trace,
+    read_trace,
+    records_of,
+    to_requests,
+    write_trace,
+)
 
 __all__ = [
     "DatasetProfile",
@@ -26,4 +36,12 @@ __all__ = [
     "gs_worst_case",
     "simpledp_worst_case",
     "logdp_worst_case",
+    "TRACE_SCHEMA",
+    "DEFAULT_QOS_CLASSES",
+    "TraceRecord",
+    "write_trace",
+    "read_trace",
+    "to_requests",
+    "records_of",
+    "qos_poisson_trace",
 ]

@@ -31,8 +31,32 @@ def test_every_module_imports_with_jax_blocked():
                           env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, leaked = proc.stdout.split(maxsplit=1)
-    assert int(count) >= 20
+    assert int(count) >= 20 + len(SERVING_SLICE) - 1
     assert leaked.strip() == "[]"
+
+
+SERVING_SLICE = [
+    "repro_torch.serving", "repro_torch.serving.sim", "repro_torch.serving.qos",
+    "repro_torch.serving.drives", "repro_torch.serving.faults", "repro_torch.serving.queue",
+    "repro_torch.data.traces", "repro_torch.distributed", "repro_torch.distributed.checkpoint",
+    "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.metrics",
+    "repro_torch.obs.kernel", "repro_torch.obs.export",
+]
+
+
+@pytest.mark.parametrize("module", SERVING_SLICE)
+def test_serving_slice_imports_with_jax_blocked(module):
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"importlib.import_module({module!r})\n"
+        "print(sorted(m for m in sys.modules if m == 'repro' or m.startswith('repro.')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in

@@ -121,7 +121,11 @@ def test_context_backends_device_and_obs():
         "python", "cuda", "strict", True)
     with pytest.raises(KeyError):
         port_core.ExecutionContext(backend="pallas")
-    with pytest.raises(TypeError, match="obs must be None"):
+    from repro_torch.obs import Observability
+
+    bundle = Observability.enabled()
+    assert port_core.ExecutionContext(obs=bundle).obs is bundle
+    with pytest.raises(TypeError, match="obs must be an Observability bundle"):
         port_core.ExecutionContext(obs=object())
     with pytest.raises(ValueError, match="numeric_policy"):
         port_core.ExecutionContext(numeric_policy="f16")
