@@ -8,7 +8,18 @@ device traceback (``traceback_kernel``), in int32, float32 and float64.  Then it
 port's main path at the paper's IN2P3 scale: the exact DP solve of every
 ``PAPER_PROFILE`` tape whose padded table fits the card, through
 ``solve_batch(..., ExecutionContext(backend="cuda", numeric_policy="f64"))``,
-to a ``TapeLibrary`` read plan.  Every phase fails the run on any mismatch.
+to a ``TapeLibrary`` read plan.  Phase 1c also times the dependent-load
+latency behind the traceback's bound (``csrc/pointer_chase.cu``).  Phases 6
+and 7 serve request traces on the card (the reference's scenarios against
+``python``, then an IN2P3-scale trace, timed); phase 8 serves the fleet
+federation: 8a the reference's fleet under three placements with a shard
+outage, ``recover_fleet`` and the launcher's tape modes, all against
+``python``; 8b and 8c a three-library federation of paper-tape cartridges
+through an outage, timed per shard: 8b a burst that every shard drains in one
+window, 8c a trace three windows long that dispatches before and after the
+outage and has batches in flight when it strikes; 8d runs every example of
+``examples/torch/`` with its defaults (the card) and on ``python``, and holds
+their numbers equal.  Every phase fails the run on any mismatch.
 
 Usage, from the root of a checkout, on a machine with a CUDA card::
 
@@ -98,6 +109,55 @@ def traceback_bound_ms(R: int, B: int) -> tuple[float, str]:
     return 1e3 * moved / HBM_BYTES_PER_S, "bytes"
 
 
+#: dependent loads timed by the pointer chase of phase 1c
+CHASE_STEPS = 100_000
+
+
+def dependent_load_ns(dev: str, R: int, S: int) -> float:
+    """Phase 1c: nanoseconds per dependent load from device memory, by the
+    one-thread pointer chase of ``csrc/pointer_chase.cu`` along one random
+    cycle through a buffer the size of one ``(R, S)`` int32 argmin plane.
+    The chain's first steps are held against the same walk on the host."""
+    import torch
+
+    from repro_torch.kernels.ltsp_dp import build
+
+    lib = build.load("pointer_chase")
+    n = R * R * S
+    gen = torch.Generator(device=dev).manual_seed(20211217)
+    order = torch.randperm(n, device=dev, generator=gen)
+    nxt = torch.empty(n, dtype=torch.int32, device=dev)
+    nxt[order] = order.roll(-1).to(torch.int32)
+    start = int(order[0])
+    del order
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def chase(steps: int, first: int) -> None:
+        rc = lib.pointer_chase(nxt.data_ptr(), steps, first, out.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"pointer_chase_kernel failed to launch: CUDA error {rc}")
+
+    chase(16, start)
+    walk = start
+    for _ in range(16):
+        walk = int(nxt[walk])
+    if int(out[0]) != walk:
+        raise SystemExit("phase 1c FAILED: pointer_chase_kernel != the walk on the host")
+    times = []
+    for _ in range(3):
+        first = int(out[0])
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        chase(CHASE_STEPS, first)
+        end.record()
+        end.synchronize()
+        times.append(begin.elapsed_time(end) * 1e6 / CHASE_STEPS)
+    del nxt
+    torch.cuda.empty_cache()
+    return sorted(times)[1]
+
 
 #: the reference serving tests' seed (demo-library scale, phase 6)
 SERVE_SEED = 20260731
@@ -111,6 +171,33 @@ IN2P3_SERVE = dict(window=40_000_000, n_drives=4)
 IN2P3_DRIVE_COSTS = dict(mount=27_000, unmount=18_000, load_seek=6_000)
 #: the paper's Table 1 ranges of requested files and of requests per tape
 PAPER_NREQ, PAPER_N = (31, 852), (1_182, 15_477)
+#: phase 8a: the reference's fleet at its own scale (``demo_fleet``, the
+#: fleet example's trace rate and length, deadlines as the launcher draws them)
+FLEET_DEMO = dict(n_shards=3, replicas=2)
+FLEET_DEMO_TRACE = dict(n_requests=180, mean_interarrival=30_000, seed=SERVE_SEED,
+                        tightness=8_000_000)
+#: phase 8a's launcher runs, each on cuda and python (and the queue on torch)
+FLEET_LAUNCHER_ARGS = {
+    "fleet": ["--serve-tape-fleet", "--tape-requests", "90", "--fleet-outage-at", "1500000",
+              "--fleet-outage-shard", "1", "--tape-drives", "2", "--tape-mount-cost", "150000"],
+    "queue": ["--serve-tape-queue", "--tape-requests", "150", "--tape-drives", "2",
+              "--tape-mount-cost", "150000"],
+}
+#: phase 8b: three shard libraries over twelve paper-tape cartridges, each
+#: cartridge on two shards, and the trace served against them (PERF.md
+#: section 4); the capture copies are capped so the phase fits host memory
+FLEET_TAPES, FLEET_SHARDS, FLEET_REPLICAS = 12, 3, 2
+FLEET_TRACE = dict(n_requests=60_000, mean_interarrival=600, seed=SERVE_SEED, skew=0.6)
+FLEET_MAX_HOST_BYTES = 55 * 10**9
+#: phase 8c: the same federation under a trace three windows long
+FLEET_SPREAD_TRACE = dict(n_requests=50_000, mean_interarrival=2_400, seed=SERVE_SEED,
+                          skew=0.6)
+#: phase 8d: the examples, and the rows a device backend prints differently
+#: from ``python`` by design (its budget prices dense table cells; its solver
+#: fault degrades through ``torch`` where ``python`` has no tier to fall to)
+EXAMPLES = ("quickstart", "online_serving", "qos_serving", "fault_serving", "fleet_serving",
+            "observability")
+EXAMPLE_DEVICE_ROWS = {"fault_serving": "fail-stop", "online_serving": "dp (fixed)"}
 
 
 def serving_exactness(dev: str) -> None:
@@ -170,17 +257,7 @@ def serving_exactness(dev: str) -> None:
                              **dict(kw(backend), **extra))
         return report, path
 
-    cells = ("cells_evaluated", "cells_reused", "cells_per_batch")
-
-    def timeline(report, with_cells=False):
-        summary = {k: v for k, v in report.summary().items()
-                   if k != "backend" and (with_cells or k not in cells)}
-        batches = [dataclasses.astuple(dataclasses.replace(
-            b, degraded_to=None if b.degraded_to is None else "fallback",
-            **({} if with_cells else {"cells_evaluated": 0, "cells_reused": 0})))
-            for b in report.batches]
-        return (list(summary.items()), [dataclasses.astuple(r) for r in report.served],
-                [dataclasses.astuple(f) for f in report.failed], batches)
+    timeline = report_rows
 
     launches: dict[str, int] = {}
     for name in scenarios:
@@ -246,53 +323,271 @@ def serving_exactness(dev: str) -> None:
 
 
 def in2p3_serve() -> dict:
-    """Phase 7's server options (besides policy, context and verify)."""
+    """Phase 7's and 8b's server options (besides policy, context and verify)."""
     from repro_torch.serving import DriveCosts
 
     return dict(IN2P3_SERVE, drive_costs=DriveCosts(**IN2P3_DRIVE_COSTS))
 
 
-def in2p3_library(paper: list, u_turn: int, context):
-    """Phase 7's library: one cartridge per paper tape of :data:`IN2P3_NREQ`
-    (the first :data:`IN2P3_TAPES`), holding that tape's requested files,
-    their sizes scaled in proportion to fill the 20 TB cartridge exactly, so
-    no cartridge shares files with another.  Returns ``(library, tapes)``."""
+def paper_cartridges(paper: list, count: int) -> list[tuple[int, list[int]]]:
+    """The first ``count`` paper tapes of :data:`IN2P3_NREQ` as cartridges:
+    ``(paper tape, file sizes)``, the tape's requested files with their sizes
+    scaled in proportion to fill the 20 TB cartridge exactly."""
     import numpy as np
 
     from repro_torch.data import PAPER_PROFILE
-    from repro_torch.storage.tape import TapeLibrary
 
     cap = PAPER_PROFILE.tape_capacity
     lo, hi = IN2P3_NREQ
-    tapes = [i for i, inst in enumerate(paper) if lo < inst.n_req <= hi][:IN2P3_TAPES]
-    lib = TapeLibrary(capacity_per_tape=cap, u_turn=u_turn, context=context)
-    for k, i in enumerate(tapes):
+    out = []
+    for i in [i for i, inst in enumerate(paper) if lo < inst.n_req <= hi][:count]:
         sizes = (paper[i].right - paper[i].left).astype(np.int64)
         sizes = sizes * cap // int(sizes.sum())
         sizes[-1] += cap - int(sizes.sum())
-        for f, size in enumerate(sizes.tolist()):
-            lib.store(f"c{k}f{f:03d}", int(size))
-    if len(lib.tapes) != len(tapes):
+        out.append((i, [int(v) for v in sizes.tolist()]))
+    return out
+
+
+def in2p3_library(paper: list, u_turn: int, context):
+    """Phase 7's library: one cartridge per paper tape of :data:`IN2P3_NREQ`
+    (the first :data:`IN2P3_TAPES`, :func:`paper_cartridges`), so no cartridge
+    shares files with another.  Returns ``(library, tapes)``."""
+    from repro_torch.data import PAPER_PROFILE
+    from repro_torch.storage.tape import TapeLibrary
+
+    carts = paper_cartridges(paper, IN2P3_TAPES)
+    lib = TapeLibrary(capacity_per_tape=PAPER_PROFILE.tape_capacity, u_turn=u_turn,
+                      context=context)
+    for k, (_, sizes) in enumerate(carts):
+        for f, size in enumerate(sizes):
+            lib.store(f"c{k}f{f:03d}", size)
+    if len(lib.tapes) != len(carts):
         raise SystemExit("phase 7 FAILED: a cartridge holds files of two paper tapes")
-    return lib, tapes
+    return lib, [i for i, _ in carts]
 
 
-def in2p3_serving(paper: list, u_turn: int, dev: str) -> None:
-    """Phase 7: serve an IN2P3-scale request trace on ``cuda``, timed.
+def in2p3_fleet(paper: list, u_turn: int):
+    """Phase 8b's federation: :data:`FLEET_SHARDS` libraries over the first
+    :data:`FLEET_TAPES` cartridges of :func:`paper_cartridges`, cartridge
+    ``k`` stored whole on shards ``k % 3`` and ``(k + 1) % 3``, so every shard
+    holds eight cartridges and no cartridge shares files with another.
+    Returns ``(libraries, replica map, tapes)``."""
+    from repro_torch.data import PAPER_PROFILE
+    from repro_torch.fleet import ReplicaMap
+    from repro_torch.storage.tape import TapeLibrary
 
-    The library is :func:`in2p3_library`'s.  The table build, the copies to
-    the host, the traceback, the server's solves and its verify are wrapped
-    with timers for the run; the wrappers call the originals unchanged.
-    """
+    carts = paper_cartridges(paper, FLEET_TAPES)
+    libs = [TapeLibrary(capacity_per_tape=PAPER_PROFILE.tape_capacity, u_turn=u_turn)
+            for _ in range(FLEET_SHARDS)]
+    for k, (_, sizes) in enumerate(carts):
+        for shard in sorted({(k + j) % FLEET_SHARDS for j in range(FLEET_REPLICAS)}):
+            for f, size in enumerate(sizes):
+                libs[shard].store(f"c{k}f{f:03d}", size)
+    per_shard = len(carts) * FLEET_REPLICAS // FLEET_SHARDS
+    if any(len(lib.tapes) != per_shard for lib in libs):
+        raise SystemExit("phase 8b FAILED: a shard does not hold whole cartridges")
+    return libs, ReplicaMap.from_libraries(libs), [i for i, _ in carts]
+
+
+def fleet_trace_and_outage(libs, rmap, trace_kw: dict):
+    """Phase 8b's or 8c's trace (``trace_kw``, :data:`FLEET_TRACE` or
+    :data:`FLEET_SPREAD_TRACE`) over the federation's catalogue, and the
+    outage of shard 0 at the trace's median arrival time."""
+    from repro_torch.fleet import fleet_catalog
+    from repro_torch.serving import ShardOutage, poisson_trace
+
+    trace = poisson_trace(fleet_catalog(libs, rmap), **trace_kw)
+    at = sorted(r.time for r in trace)[len(trace) // 2]
+    return trace, (ShardOutage(at=at, shard=0),)
+
+
+class PeakRss:
+    """The peak resident set of this process during a block, in GiB, sampled
+    every 10 ms from ``/proc/self/statm``: the chip machine's kernel keeps no
+    high-water mark that a phase could reset.  Where ``statm`` is missing the
+    peak is the process's since it started (``ru_maxrss``), and ``since``
+    says which."""
+
+    def __enter__(self):
+        import threading
+
+        self.since = "this phase"
+        try:
+            self.start = self.peak = self._now()
+        except OSError:
+            self.since, self.start = "the process started", None
+            return self
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _now() -> float:
+        import os
+
+        pages = int(Path("/proc/self/statm").read_text().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._now())
+
+    def __exit__(self, *exc):
+        import resource
+
+        if self.since == "this phase":
+            self._stop.set()
+            self._thread.join()
+            self.peak = max(self.peak, self._now())
+        else:
+            self.peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        return False
+
+
+class SolveTimers:
+    """Times every serving solve of one run, by part: the table build (CUDA
+    events, then a synchronisation so the copies time only themselves), the
+    copies of ``T``/``C`` to the host, the host traceback, the server's
+    solves and its verify.  The wrappers call the originals unchanged and go
+    on exit.  Each dispatch records the shard whose server solved it."""
+
+    def __enter__(self):
+        import collections
+
+        from repro_torch.kernels.ltsp_dp import ops
+        from repro_torch.serving import queue as squeue
+
+        self.events, self.host, self.dispatch = [], collections.defaultdict(float), []
+        self.by_shard = collections.defaultdict(lambda: collections.defaultdict(float))
+        self._shard = 0
+        self._originals = (ops.ltsp_dp_tables, ops._to_host, ops.traceback_detours,
+                           squeue.solve_warm, squeue.verify_schedule,
+                           squeue.OnlineTapeServer._solve_one)
+        tables, to_host, walk, solve_warm, verify, solve_one = self._originals
+
+        def timed_tables(*args, **kwargs):
+            import torch
+
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            t1 = time.perf_counter()
+            start.record()
+            out = tables(*args, **kwargs)
+            stop.record()
+            stop.synchronize()
+            self.host["build"] += time.perf_counter() - t1
+            self.by_shard[self._shard]["build"] += time.perf_counter() - t1
+            self.events.append((start, stop))
+            return out
+
+        def timed(key, fn):
+            def wrapper(*args, **kwargs):
+                t1 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                self.host[key] += time.perf_counter() - t1
+                self.by_shard[self._shard][key] += time.perf_counter() - t1
+                return out
+            return wrapper
+
+        def timed_solve(inst, **kwargs):
+            before = dict(self.host)
+            t1 = time.perf_counter()
+            out = solve_warm(inst, **kwargs)
+            self.dispatch.append((self._shard, inst, time.perf_counter() - t1,
+                                  {k: self.host[k] - before.get(k, 0.0) for k in self.host}))
+            return out
+
+        def shard_solve(server, *args, **kwargs):
+            self._shard = server._obs_shard
+            return solve_one(server, *args, **kwargs)
+
+        ops.ltsp_dp_tables, ops._to_host = timed_tables, timed("copy", to_host)
+        ops.traceback_detours, squeue.solve_warm = timed("traceback", walk), timed_solve
+        squeue.verify_schedule = timed("verify", verify)
+        squeue.OnlineTapeServer._solve_one = shard_solve
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.ltsp_dp import ops
+        from repro_torch.serving import queue as squeue
+
+        (ops.ltsp_dp_tables, ops._to_host, ops.traceback_detours, squeue.solve_warm,
+         squeue.verify_schedule, squeue.OnlineTapeServer._solve_one) = self._originals
+        return False
+
+    def rows(self) -> list[dict]:
+        """One row per dispatch: its shape, shard and the split of its solve."""
+        from repro_torch.kernels.ltsp_dp import ops
+
+        out = []
+        for (shard, inst, secs, parts), (start, stop) in zip(self.dispatch, self.events):
+            R_pad, S_pad = ops.bucket_shape(inst)
+            out.append({"shard": shard, "R_pad": R_pad, "S_pad": S_pad, "n_req": inst.n_req,
+                        "n": inst.n, "solve_ms": 1e3 * secs,
+                        "build_ms": start.elapsed_time(stop),
+                        "copy_ms": 1e3 * parts.get("copy", 0.0),
+                        "traceback_ms": 1e3 * parts.get("traceback", 0.0),
+                        "other_ms": 1e3 * (secs - parts.get("build", 0.0)
+                                           - parts.get("copy", 0.0)
+                                           - parts.get("traceback", 0.0))})
+        return out
+
+
+def check_served(phase: str, reports, timers: SolveTimers, launches: dict) -> None:
+    """Every schedule's cost equals ``replay_schedule``'s, no batch fell back,
+    every dispatch built its tables on the card."""
+    batches = [b for r in reports for b in r.batches]
+    for b in batches:
+        if not b.verified or b.solver_cost != b.replay_cost:
+            raise SystemExit(f"phase {phase} FAILED: {b.tape_id} schedule cost != replay_schedule")
+    n_fallbacks = sum(b.degraded_to is not None for b in batches)
+    if n_fallbacks or not launches["far_fold_kernel"] or not launches["near_fold_kernel"]:
+        raise SystemExit(f"phase {phase} FAILED: fallbacks {n_fallbacks}, launches {launches}")
+    if len(timers.dispatch) != len(batches) or len(timers.events) != len(batches):
+        raise SystemExit(f"phase {phase} FAILED: a dispatch did not build its tables on the card")
+
+
+def dispatch_summary(rows: list[dict]) -> tuple[str, int]:
+    """The (R_pad, S_pad) histogram and n_req/n ranges of some dispatches, and
+    how many of them lie inside the paper's Table 1 ranges."""
     import collections
-    import resource
 
-    import torch
+    if not rows:
+        return "no dispatch", 0
+    hist = collections.Counter((r["R_pad"], r["S_pad"]) for r in rows)
+    inside = sum(PAPER_NREQ[0] <= r["n_req"] <= PAPER_NREQ[1]
+                 and PAPER_N[0] <= r["n"] <= PAPER_N[1] for r in rows)
+    text = (f"{len(rows)} dispatches, (R_pad, S_pad) histogram {sorted(hist.items())}; n_req "
+            f"{min(r['n_req'] for r in rows)}-{max(r['n_req'] for r in rows)}, n "
+            f"{min(r['n'] for r in rows)}-{max(r['n'] for r in rows)}; {inside} of {len(rows)} "
+            f"inside the paper's Table 1 ranges (n_req {PAPER_NREQ}, n {PAPER_N})")
+    return text, inside
 
+
+def log_split(phase: str, rows: list[dict], host: dict, n_served: int | None = None,
+              wall: float | None = None) -> None:
+    """Where the solves' time went (phase 7's split), and with ``wall`` the
+    rest of the event loop."""
+    solve_s = sum(r["solve_ms"] for r in rows) / 1e3
+    other_s = solve_s - host["build"] - host["copy"] - host["traceback"]
+    split = (f"table build {sum(r['build_ms'] for r in rows) / 1e3:.3f} s (CUDA events), "
+             f"copies of T/C to the host {host['copy']:.3f} s, DenseStore copies and packing "
+             f"{other_s:.3f} s, host traceback {host['traceback']:.3f} s, verify "
+             f"{host['verify']:.3f} s")
+    if wall is None:
+        log(f"phase {phase}: {split}")
+    else:
+        log(f"phase {phase}: {n_served} requests served in {wall:.3f} s wall: {split}, rest "
+            f"of the event loop {wall - solve_s - host['verify']:.3f} s")
+
+
+def in2p3_serving(paper: list, u_turn: int, dev: str) -> dict:
+    """Phase 7: serve an IN2P3-scale request trace on ``cuda``, timed
+    (:class:`SolveTimers`).  The library is :func:`in2p3_library`'s."""
     from repro_torch.core import ExecutionContext
     from repro_torch.kernels.ltsp_dp import ltsp_dp, ops
     from repro_torch.serving import poisson_trace, serve_trace
-    from repro_torch.serving import queue as squeue
 
     lib, tapes = in2p3_library(paper, u_turn, ExecutionContext(
         backend="cuda", numeric_policy="f64", device=dev))
@@ -300,106 +595,350 @@ def in2p3_serving(paper: list, u_turn: int, dev: str) -> None:
     log(f"phase 7: library of {len(tapes)} cartridges from paper tapes {tapes} "
         f"(n_req {[paper[i].n_req for i in tapes]}), U = {u_turn}; trace {IN2P3_TRACE}, "
         f"{IN2P3_SERVE}")
-
-    events, host = [], collections.defaultdict(float)
-    dispatch = []
-    originals = (ops.ltsp_dp_tables, ops._to_host, ops.traceback_detours,
-                 squeue.solve_warm, squeue.verify_schedule)
-
-    def tables(*args, **kwargs):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t1 = time.perf_counter()
-        start.record()
-        out = originals[0](*args, **kwargs)
-        stop.record()
-        stop.synchronize()
-        host["build"] += time.perf_counter() - t1
-        events.append((start, stop))
-        return out
-
-    def timed(key, fn):
-        def wrapper(*args, **kwargs):
-            t1 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            host[key] += time.perf_counter() - t1
-            return out
-        return wrapper
-
-    def solve(inst, **kwargs):
-        before = dict(host)
-        t1 = time.perf_counter()
-        out = originals[3](inst, **kwargs)
-        dispatch.append((inst, time.perf_counter() - t1,
-                         {k: host[k] - before.get(k, 0.0) for k in host}))
-        return out
-
-    ops.ltsp_dp_tables, ops._to_host = tables, timed("copy", originals[1])
-    ops.traceback_detours, squeue.solve_warm = timed("traceback", originals[2]), solve
-    squeue.verify_schedule = timed("verify", originals[4])
-    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     host_before = ops.HOST_BYTES["copied"]
-    try:
+    with PeakRss() as rss, SolveTimers() as timers:
         ltsp_dp.reset_launches()
         t0 = time.perf_counter()
-        report = serve_trace(lib, trace, "accumulate", policy="dp", context=lib.context, verify=True,
-                             warm_start=False, **in2p3_serve())
+        report = serve_trace(lib, trace, "accumulate", policy="dp", context=lib.context,
+                             verify=True, warm_start=False, **in2p3_serve())
         wall = time.perf_counter() - t0
         launches = dict(ltsp_dp.LAUNCHES)
-    finally:
-        (ops.ltsp_dp_tables, ops._to_host, ops.traceback_detours,
-         squeue.solve_warm, squeue.verify_schedule) = originals
-    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     host_bytes = ops.HOST_BYTES["copied"] - host_before
 
     if report.n_served != len(trace):
         raise SystemExit(f"phase 7 FAILED: served {report.n_served} of {len(trace)}")
     if report.backend != "cuda":
         raise SystemExit(f"phase 7 FAILED: served on {report.backend}, not cuda")
-    for b in report.batches:
-        if not b.verified or b.solver_cost != b.replay_cost:
-            raise SystemExit(f"phase 7 FAILED: {b.tape_id} schedule cost != replay_schedule")
-    n_fallbacks = sum(b.degraded_to is not None for b in report.batches)
-    if n_fallbacks or not launches["far_fold_kernel"] or not launches["near_fold_kernel"]:
-        raise SystemExit(f"phase 7 FAILED: fallbacks {n_fallbacks}, launches {launches}")
-    if len(dispatch) != len(report.batches) or len(events) != len(dispatch):
-        raise SystemExit("phase 7 FAILED: a dispatch did not build its tables on the card")
-
-    build_ms = [start.elapsed_time(stop) for start, stop in events]
-    rows = []
-    for (inst, secs, parts), kernel_ms in zip(dispatch, build_ms):
-        R_pad, S_pad = ops.bucket_shape(inst)
-        rows.append({"R_pad": R_pad, "S_pad": S_pad, "n_req": inst.n_req, "n": inst.n,
-                     "solve_ms": 1e3 * secs, "build_ms": kernel_ms,
-                     "copy_ms": 1e3 * parts.get("copy", 0.0),
-                     "traceback_ms": 1e3 * parts.get("traceback", 0.0),
-                     "other_ms": 1e3 * (secs - parts.get("build", 0.0) - parts.get("copy", 0.0)
-                                        - parts.get("traceback", 0.0))})
-    hist = collections.Counter((r["R_pad"], r["S_pad"]) for r in rows)
-    r_pads = sorted(r["R_pad"] for r in rows)
-    inside = sum(PAPER_NREQ[0] <= r["n_req"] <= PAPER_NREQ[1] and PAPER_N[0] <= r["n"] <= PAPER_N[1]
-                 for r in rows)
-    log(f"phase 7: {len(rows)} dispatches, (R_pad, S_pad) histogram "
-        f"{sorted(hist.items())}; n_req {min(r['n_req'] for r in rows)}-"
-        f"{max(r['n_req'] for r in rows)}, n {min(r['n'] for r in rows)}-"
-        f"{max(r['n'] for r in rows)}; {inside} of {len(rows)} inside the paper's Table 1 "
-        f"ranges (n_req {PAPER_NREQ}, n {PAPER_N})")
+    check_served("7", [report], timers, launches)
+    rows = timers.rows()
+    text, _ = dispatch_summary(rows)
+    log(f"phase 7: {text}")
     for r in rows:
         log(f"  dispatch ({r['R_pad']}, {r['S_pad']}) n_req {r['n_req']} n {r['n']}: solve "
             f"{r['solve_ms']:.3f} ms = build {r['build_ms']:.3f} (CUDA events) + copy to host "
             f"{r['copy_ms']:.3f} + host traceback {r['traceback_ms']:.3f} + other "
             f"{r['other_ms']:.3f} (DenseStore copies, packing, guards)")
+    r_pads = sorted(r["R_pad"] for r in rows)
     if r_pads[len(r_pads) // 2] < 128 or r_pads.count(256) < 3:
         raise SystemExit(f"phase 7 FAILED: dispatch sizes {r_pads} miss the targets")
-    solve_s = sum(r["solve_ms"] for r in rows) / 1e3
-    other_s = solve_s - host["build"] - host["copy"] - host["traceback"]
-    log(f"phase 7: {report.n_served} requests served in {wall:.3f} s wall: table build "
-        f"{sum(build_ms) / 1e3:.3f} s (CUDA events), copies of T/C to the host "
-        f"{host['copy']:.3f} s, DenseStore copies and packing {other_s:.3f} s, "
-        f"host traceback {host['traceback']:.3f} s, verify {host['verify']:.3f} s, "
-        f"rest of the event loop {wall - solve_s - host['verify']:.3f} s")
+    log_split("7", rows, timers.host, report.n_served, wall)
     log(f"phase 7: host bytes {host_bytes} ({host_bytes / 2**30:.3f} GiB), peak host RSS "
-        f"{rss1 / 2**20:.3f} GiB (before the phase {rss0 / 2**20:.3f} GiB), fallbacks 0, "
-        f"launches {launches}")
+        f"{rss.peak:.3f} GiB (since {rss.since}; {rss.start or 0:.3f} GiB at its start), "
+        f"fallbacks 0, launches {launches}")
+    return launches
+
+
+def report_rows(report, with_cells: bool = False) -> tuple:
+    """A serving report as plain data without its backend: the summary, the
+    served and failed rows and the batch records, the cell counters zeroed
+    unless ``with_cells`` (they count dense device cells on the device
+    backends and real DP cells on ``python``, in the JAX package too)."""
+    import dataclasses
+
+    cells = ("cells_evaluated", "cells_reused", "cells_per_batch")
+    summary = {k: v for k, v in report.summary().items()
+               if k != "backend" and (with_cells or k not in cells)}
+    batches = [dataclasses.astuple(dataclasses.replace(
+        b, degraded_to=None if b.degraded_to is None else "fallback",
+        **({} if with_cells else {"cells_evaluated": 0, "cells_reused": 0})))
+        for b in report.batches]
+    return (list(summary.items()), [dataclasses.astuple(r) for r in report.served],
+            [dataclasses.astuple(f) for f in report.failed], batches)
+
+
+def fleet_rows(fr, with_cells: bool = False) -> tuple:
+    """A :class:`FleetReport` as plain data: the merged and per-shard reports
+    (:func:`report_rows`) and the federation's own facts."""
+    return (report_rows(fr.merged, with_cells), [report_rows(r, with_cells) for r in fr.shards],
+            fr.placement, fr.n_shards, fr.routes, fr.n_rerouted, fr.outages)
+
+
+def launcher_table(out: str) -> list[str]:
+    """The table a launcher run printed, each row's wall time dropped."""
+    import re
+
+    lines = out.splitlines()
+    start = next(i for i, line in enumerate(lines)
+                 if line.startswith(("admission,", "placement,")))
+    rows = []
+    for line in lines[start:]:
+        if "," not in line:
+            break
+        rows.append(re.sub(r" \(\d+ ms wall(\)$|; )",
+                           lambda m: "" if m.group(1) == ")" else " (", line))
+    return rows
+
+
+def fleet_exactness(dev: str) -> dict:
+    """Phase 8a: the reference's fleet at its own scale on ``cuda`` and on
+    ``python``, under three placements with a mid-trace shard outage;
+    ``recover_fleet`` from torn journals; the launcher's two tape modes.
+    Returns the kernel launches of the ``cuda`` fleet runs."""
+    import json
+    import os
+    import shutil
+
+    from repro_torch.core import ExecutionContext, FleetOptions, SolveCache
+    from repro_torch.data.traces import qos_poisson_trace, to_requests
+    from repro_torch.fleet import (
+        demo_fleet, fleet_catalog, merge_journals, recover_fleet, serve_fleet_trace,
+        shard_journal_path,
+    )
+    from repro_torch.kernels.ltsp_dp import ltsp_dp
+    from repro_torch.serving import DriveCosts, RetryPolicy, ShardOutage
+
+    # the launcher runs start first: they are separate processes and overlap
+    # with the in-process runs below
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {}
+    for mode, args in FLEET_LAUNCHER_ARGS.items():
+        for backend in ("cuda", "python", "torch"):
+            if mode == "fleet" and backend == "torch":
+                continue
+            procs[mode, backend] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.serve", *args, "--tape-backend",
+                 backend, "--tape-device", dev],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    try:
+        jdir = ROOT / "build" / "chip_smoke_fleet"
+        shutil.rmtree(jdir, ignore_errors=True)
+        jdir.mkdir(parents=True)
+        libs, rmap = demo_fleet(SERVE_SEED, **FLEET_DEMO)
+        trace, qos = to_requests(qos_poisson_trace(fleet_catalog(libs, rmap), **FLEET_DEMO_TRACE))
+        outages = (ShardOutage(at=sorted(r.time for r in trace)[len(trace) // 2], shard=1),)
+        costs = DriveCosts(mount=150_000, unmount=60_000, load_seek=30_000)
+
+        def serve(placement, backend, journal, recover=False):
+            libs, rmap = demo_fleet(SERVE_SEED, **FLEET_DEMO)
+            ctx = ExecutionContext(backend=backend, device=dev, numeric_policy="f64",
+                                   cache=SolveCache(), fleet=FleetOptions(
+                                       placement=placement, **FLEET_DEMO))
+            kw = dict(replica_map=rmap, outages=outages, qos=qos, window=400_000, policy="dp",
+                      n_drives=2, drive_costs=costs, retry=RetryPolicy(on_exhausted="drop"),
+                      context=ctx)
+            if recover:
+                return recover_fleet(libs, trace, str(journal), "accumulate", **kw)
+            return serve_fleet_trace(libs, trace, "accumulate", journal=str(journal), **kw)
+
+        def journal_bytes(base):
+            return [Path(shard_journal_path(base, i)).read_bytes()
+                    for i in range(FLEET_DEMO["n_shards"])]
+
+        launches = dict.fromkeys(ltsp_dp.LAUNCHES, 0)
+        for placement in ("static-hash", "least-loaded", "replica-affinity"):
+            bases = {b: jdir / f"{placement}-{b}.journal" for b in ("cuda", "python", "torch")}
+            t0 = time.perf_counter()
+            ltsp_dp.reset_launches()
+            cuda = serve(placement, "cuda", bases["cuda"])
+            for k, v in ltsp_dp.LAUNCHES.items():
+                launches[k] += v
+            t_cuda = time.perf_counter() - t0
+            py = serve(placement, "python", bases["python"])
+            plain = serve(placement, "torch", bases["torch"])
+            if (fleet_rows(cuda) != fleet_rows(py)
+                    or cuda.summary()["fleet"] != py.summary()["fleet"]):
+                raise SystemExit(f"phase 8a FAILED: {placement}: cuda report != python")
+            if fleet_rows(cuda, with_cells=True) != fleet_rows(plain, with_cells=True):
+                raise SystemExit(f"phase 8a FAILED: {placement}: cuda cell counters != torch")
+            if journal_bytes(bases["cuda"]) != journal_bytes(bases["python"]):
+                raise SystemExit(f"phase 8a FAILED: {placement}: cuda shard journals != python")
+            merged = json.dumps(merge_journals(bases["cuda"], FLEET_DEMO["n_shards"]))
+            if merged != json.dumps(merge_journals(bases["python"], FLEET_DEMO["n_shards"])):
+                raise SystemExit(f"phase 8a FAILED: {placement}: merge_journals differs")
+            if any(b.degraded_to is not None for r in cuda.shards for b in r.batches):
+                raise SystemExit(f"phase 8a FAILED: {placement}: a cuda batch fell back")
+            # torn journals: every shard cut at half its bytes, recovered on cuda
+            whole = journal_bytes(bases["cuda"])
+            for i, data in enumerate(whole):
+                Path(shard_journal_path(bases["cuda"], i)).write_bytes(data[: len(data) // 2])
+            rec = serve(placement, "cuda", bases["cuda"], recover=True)
+            if (journal_bytes(bases["cuda"]) != whole
+                    or fleet_rows(rec, True) != fleet_rows(cuda, True)):
+                raise SystemExit(f"phase 8a FAILED: {placement}: recover_fleet is not "
+                                 f"byte-identical")
+            log(f"phase 8a: {placement}: {cuda.n_served} served, {cuda.n_failed} failed, "
+                f"{cuda.n_rerouted} re-routed after shard 1's outage at {outages[0].at}, routes "
+                f"{cuda.routes}; cuda == python (summary, per-shard timelines, {len(merged)} bytes "
+                f"of merge_journals, shard journals {[len(b) for b in whole]} bytes), cells == "
+                f"torch on the card; recover_fleet from journals cut at half is byte-identical; "
+                f"cuda run {t_cuda:.3f} s")
+        if not launches["near_fold_kernel"] or not launches["far_fold_kernel"]:
+            raise SystemExit(f"phase 8a FAILED: the cuda fleet runs launched {launches}")
+
+        tables = {}
+        for (mode, backend), proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise SystemExit(f"phase 8a FAILED: launcher --serve-tape-{mode} on {backend} "
+                                 f"exited {proc.returncode}:\n{err[-3000:]}")
+            tables[mode, backend] = launcher_table(out)
+
+        def no_cells(rows):  # the queue table's cells and reused columns
+            return [",".join(row.split(",")[:9] + row.split(",")[11:]) for row in rows]
+
+        if tables["fleet", "cuda"] != tables["fleet", "python"]:
+            raise SystemExit("phase 8a FAILED: launcher --serve-tape-fleet: cuda table != python")
+        if (no_cells(tables["queue", "cuda"]) != no_cells(tables["queue", "python"])
+                or tables["queue", "cuda"] != tables["queue", "torch"]):
+            raise SystemExit("phase 8a FAILED: launcher --serve-tape-queue: cuda table != python "
+                             "(cells aside) or != torch on the card")
+        for mode in FLEET_LAUNCHER_ARGS:
+            log(f"phase 8a: launcher --serve-tape-{mode} ({len(tables[mode, 'cuda']) - 1} rows): "
+                f"cuda == python" + (" (cells aside), == torch on the card" if mode == "queue"
+                                     else ""))
+            for row in tables[mode, "cuda"]:
+                log(f"  {row}")
+        log(f"phase 8a: cuda fleet launches {launches}")
+        shutil.rmtree(jdir, ignore_errors=True)
+    finally:  # no launcher process outlives the phase, whatever failed
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return launches
+
+
+def in2p3_fleet_serving(paper: list, u_turn: int, dev: str, spread: bool) -> dict:
+    """Phase 8b (``spread=False``) or 8c: serve an IN2P3-scale federation on
+    ``cuda`` through an outage of shard 0, timed like phase 7
+    (:class:`SolveTimers`), per shard and in all.  8b's burst arrives within
+    one window: every dispatch drains a whole replica's queue after the
+    trace, all inside Table 1's ranges.  8c's trace spans three windows:
+    every shard dispatches before the outage, shard 0 has batches in flight
+    when it strikes, and the survivors serve on while arrivals continue; its
+    dispatch sizes are printed against Table 1, not held to it (a window's
+    first and last dispatches are smaller).  Returns the kernel launches."""
+    from repro_torch.core import ExecutionContext, FleetOptions
+    from repro_torch.fleet import serve_fleet_trace
+    from repro_torch.kernels.ltsp_dp import ltsp_dp, ops
+    from repro_torch.serving import RetryPolicy
+
+    phase, trace_kw = ("8c", FLEET_SPREAD_TRACE) if spread else ("8b", FLEET_TRACE)
+    libs, rmap, tapes = in2p3_fleet(paper, u_turn)
+    trace, outages = fleet_trace_and_outage(libs, rmap, trace_kw)
+    at = outages[0].at
+    ctx = ExecutionContext(backend="cuda", numeric_policy="f64", device=dev, fleet=FleetOptions(
+        n_shards=FLEET_SHARDS, placement="replica-affinity", replicas=FLEET_REPLICAS))
+    log(f"phase {phase}: {FLEET_SHARDS} shards x 8 of {len(tapes)} cartridges from paper tapes "
+        f"{tapes} (n_req {[paper[i].n_req for i in tapes]}), each on shards k % 3 and "
+        f"(k + 1) % 3; U = {u_turn}; trace {trace_kw}, arrivals {trace[0].time}-"
+        f"{trace[-1].time}; {IN2P3_SERVE} per shard, replica-affinity, shard 0 dark at {at}")
+    host_before = ops.HOST_BYTES["copied"]
+    with PeakRss() as rss, SolveTimers() as timers:
+        ltsp_dp.reset_launches()
+        t0 = time.perf_counter()
+        fr = serve_fleet_trace(libs, trace, "accumulate", replica_map=rmap, outages=outages,
+                               policy="dp", context=ctx, verify=True, warm_start=False,
+                               retry=RetryPolicy(on_exhausted="drop"), **in2p3_serve())
+        wall = time.perf_counter() - t0
+        launches = dict(ltsp_dp.LAUNCHES)
+    host_bytes = ops.HOST_BYTES["copied"] - host_before
+
+    if fr.n_served != len(trace) or fr.n_failed:
+        raise SystemExit(f"phase {phase} FAILED: served {fr.n_served}, failed {fr.n_failed} of "
+                         f"{len(trace)}")
+    if fr.n_rerouted == 0 or fr.merged.backend != "cuda":
+        raise SystemExit(f"phase {phase} FAILED: {fr.n_rerouted} re-routed, on "
+                         f"{fr.merged.backend}")
+    check_served(phase, fr.shards, timers, launches)
+    rows = timers.rows()
+    # each shard's solves run in its batches' order
+    batches = {i: iter(r.batches) for i, r in enumerate(fr.shards)}
+    matched = [(r, next(batches[r["shard"]])) for r in rows]
+    if any((r["n_req"], r["n"]) != (b.n_files, b.n_requests) for r, b in matched):
+        raise SystemExit(f"phase {phase} FAILED: a timed solve is not its shard's batch")
+    in_flight = sum(b.aborted_by == "drive-failure" for b in fr.shards[0].batches)
+    for shard in range(FLEET_SHARDS):
+        mine = [r for r in rows if r["shard"] == shard]
+        before = sum(b.dispatched < at for b in fr.shards[shard].batches)
+        text, _ = dispatch_summary(mine)
+        log(f"phase {phase}: shard {shard}: {fr.shards[shard].n_served} served, "
+            f"{fr.routes[shard]} routed here, {before} dispatches before the outage and "
+            f"{len(mine) - before} after; {text}")
+        log_split(f"{phase} shard {shard}", mine, timers.by_shard[shard])
+        if spread and (before == 0 or (shard != 0 and before == len(mine))):
+            raise SystemExit(f"phase 8c FAILED: shard {shard} dispatched {before} of "
+                             f"{len(mine)} before the outage")
+    text, inside = dispatch_summary(rows)
+    log(f"phase {phase}: in all {text}")
+    for r, b in matched:
+        log(f"  shard {r['shard']} dispatch at {b.dispatched} ({r['R_pad']}, {r['S_pad']}) n_req "
+            f"{r['n_req']} n {r['n']}: solve {r['solve_ms']:.3f} ms = build "
+            f"{r['build_ms']:.3f} + copy {r['copy_ms']:.3f} + traceback "
+            f"{r['traceback_ms']:.3f} + other {r['other_ms']:.3f}")
+    log_split(phase, rows, timers.host, fr.n_served, wall)
+    log(f"phase {phase}: {fr.n_rerouted} requests re-routed by the outage, {in_flight} of shard "
+        f"0's batches in flight when it struck; host bytes {host_bytes} "
+        f"({host_bytes / 2**30:.3f} GiB), peak host RSS {rss.peak:.3f} GiB (since "
+        f"{rss.since}; {rss.start or 0:.3f} GiB at its start), fallbacks 0, every schedule == "
+        f"replay_schedule, launches {launches}")
+    largest = max((r["R_pad"], r["S_pad"]) for r in rows)
+    if largest[0] > MAIN_R_MAX or max(r["S_pad"] for r in rows) > 16384:
+        raise SystemExit(f"phase {phase} FAILED: largest dispatch {largest}")
+    if not spread and inside != len(rows):
+        raise SystemExit(f"phase 8b FAILED: {len(rows) - inside} dispatches outside Table 1")
+    if spread and not in_flight:
+        raise SystemExit("phase 8c FAILED: the outage found no batch in flight on shard 0")
+    if host_bytes > FLEET_MAX_HOST_BYTES:
+        raise SystemExit(f"phase {phase} FAILED: {host_bytes} bytes to the host, over "
+                         f"{FLEET_MAX_HOST_BYTES}")
+    return launches
+
+
+def example_numbers(out: str, drop_rows: str | None) -> list[str]:
+    """The numbers an example printed, without the rows ``drop_rows`` starts."""
+    import re
+
+    lines = [line for line in out.splitlines()
+             if drop_rows is None or not line.startswith(drop_rows)]
+    return re.findall(r"-?\d+(?:[.,]\d+)*(?:e[+-]?\d+)?", "\n".join(lines))
+
+
+def examples_on_the_card() -> None:
+    """Phase 8d: every example of ``examples/torch/`` with its default
+    arguments (the CUDA kernels on the card) and with ``--backend python``,
+    all as processes at once, each in a directory of its own; the numbers
+    they print must be equal, but for :data:`EXAMPLE_DEVICE_ROWS`."""
+    import os
+    import shutil
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    work = ROOT / "build" / "chip_smoke_examples"
+    shutil.rmtree(work, ignore_errors=True)
+    procs = {}
+    try:
+        for name in EXAMPLES:
+            for backend, args in (("cuda", []), ("python", ["--backend", "python"])):
+                cwd = work / f"{name}-{backend}"
+                cwd.mkdir(parents=True)
+                procs[name, backend] = subprocess.Popen(
+                    [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py"), *args],
+                    cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+        printed = {}
+        for key, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise SystemExit(f"phase 8d FAILED: example {key[0]} on {key[1]} exited "
+                                 f"{proc.returncode}:\n{err[-3000:]}")
+            printed[key] = out
+        for name in EXAMPLES:
+            drop = EXAMPLE_DEVICE_ROWS.get(name)
+            cuda = example_numbers(printed[name, "cuda"], drop)
+            if cuda != example_numbers(printed[name, "python"], drop) or len(cuda) <= 5:
+                raise SystemExit(f"phase 8d FAILED: example {name}: cuda numbers != python")
+            log(f"phase 8d: example {name}: {len(cuda)} numbers, cuda (default) == python"
+                + (f" but for the rows starting {drop!r}" if drop else ""))
+            for line in printed[name, "cuda"].splitlines():
+                if drop and line.startswith(drop):
+                    log(f"  cuda: {line}")
+        shutil.rmtree(work, ignore_errors=True)
+    finally:  # no example process outlives the phase, whatever failed
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def main() -> int:
@@ -652,17 +1191,34 @@ def main() -> int:
         if n == 0:
             check_traceback(C, arrays[2], f"paper tape {idx}")
             tb_ms = events_ms(lambda: ltsp_dp.ltsp_traceback(C, arrays[2]), reps=5)
+            # the same walk with L2 flushed before each one (256 MB written)
+            flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+            cold = []
+            for _ in range(5):
+                flush.zero_()
+                cold.append(events_ms(lambda: ltsp_dp.ltsp_traceback(C, arrays[2])))
+            tb_cold_ms = sorted(cold)[len(cold) // 2]
+            del flush
             t1 = sync_now()
             traceback_ref(C, arrays[2])
             tb_plain_ms = 1e3 * (sync_now() - t1)
         del C
     torch.cuda.empty_cache()
     tb_bound, tb_by = traceback_bound_ms(MEDIAN_BUCKET[0], 1)
+    load_ns = dependent_load_ns(dev, *MEDIAN_BUCKET)
+    tb_latency_ms = (MEDIAN_BUCKET[0] - 1) * load_ns / 1e6
     phases["1c traceback vs host walk"] = time.perf_counter() - t0
     log(f"phase 1c: ltsp_traceback == traceback_detours on {len(median)} median-bucket tapes; "
-        f"at ({MEDIAN_BUCKET[0]}, {MEDIAN_BUCKET[1]}) kernel {tb_ms:.4f} ms, plain walk "
-        f"{tb_plain_ms:.3f} ms, bound {tb_bound:.7f} ms ({tb_by}), "
-        f"{phases['1c traceback vs host walk']:.3f} s")
+        f"at ({MEDIAN_BUCKET[0]}, {MEDIAN_BUCKET[1]}) kernel {tb_ms:.4f} ms (L2 flushed "
+        f"first: {tb_cold_ms:.4f} ms), plain walk {tb_plain_ms:.3f} ms, bound "
+        f"{tb_bound:.7f} ms ({tb_by}), {phases['1c traceback vs host walk']:.3f} s")
+    log(f"phase 1c: dependent load from device memory {load_ns:.1f} ns (one-thread pointer "
+        f"chase, {CHASE_STEPS} steps over a {MEDIAN_BUCKET[0]}x{MEDIAN_BUCKET[0]}x"
+        f"{MEDIAN_BUCKET[1]} int32 buffer); latency bound of the traceback (R - 1 = "
+        f"{MEDIAN_BUCKET[0] - 1} such loads) {tb_latency_ms:.4f} ms: the kernel with L2 "
+        f"flushed first runs at {100 * tb_latency_ms / tb_cold_ms:.1f}% of it; the warm "
+        f"walk ({tb_ms:.4f} ms, the same walk repeated, its cells in L2) is not comparable "
+        f"with a bound of loads from device memory")
 
     # ---- phase 2: cuda == python on the bench profile ----------------------
     t0 = time.perf_counter()
@@ -801,8 +1357,31 @@ def main() -> int:
 
     # ---- phase 7: an IN2P3-scale trace served on the card, timed -------------
     t0 = time.perf_counter()
-    in2p3_serving(paper, u_half, dev)
+    path_launches = {"3 dp main path": main_launches}
+    path_launches["7 IN2P3-scale serving"] = in2p3_serving(paper, u_half, dev)
     phases["7 IN2P3-scale serving"] = time.perf_counter() - t0
+
+    # ---- phase 8: the fleet federation on the card ---------------------------
+    t0 = time.perf_counter()
+    path_launches["8a fleet exactness"] = fleet_exactness(dev)
+    phases["8a fleet exactness"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_launches["8b IN2P3-scale federation, one window"] = in2p3_fleet_serving(
+        paper, u_half, dev, spread=False)
+    phases["8b IN2P3-scale federation, one window"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_launches["8c IN2P3-scale federation, three windows"] = in2p3_fleet_serving(
+        paper, u_half, dev, spread=True)
+    phases["8c IN2P3-scale federation, three windows"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    examples_on_the_card()
+    phases["8d examples on the card"] = time.perf_counter() - t0
+
+    # the kernels line counts the launches of every path, each path's counts
+    # set to 0 just before it and read just after
+    launches = {k: sum(p[k] for p in path_launches.values()) for k in ltsp_dp.LAUNCHES}
+    for path, counts in path_launches.items():
+        log(f"launches on path {path}: {counts}")
 
     for name, secs in phases.items():
         log(f"wall {name}: {secs:.3f} s")
@@ -812,7 +1391,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/ltsp_dp/csrc/ltsp_tiled.cu",
         "replaces": "src/repro/kernels/ltsp_dp/ltsp_dp.py:101",
-        "launches": main_launches["far_fold_kernel"] + main_launches["near_fold_kernel"],
+        "launches": launches["far_fold_kernel"] + launches["near_fold_kernel"],
         "max_abs_err": max_err["tiled"],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -824,7 +1403,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/ltsp_dp/csrc/ltsp_traceback.cu",
         "replaces": "src/repro/kernels/ltsp_dp/ops.py:263",
-        "launches": main_launches["traceback_kernel"],
+        "launches": launches["traceback_kernel"],
         "max_abs_err": max_err["traceback"],
         "ms": tb_ms,
         "plain_ms": tb_plain_ms,

@@ -4,7 +4,9 @@ Stands beside the JAX package ``repro`` (the reference, which it never
 imports) with the same layout: ``core`` (instances, the paper's DP and
 heuristics, the solver engine), ``data`` (seeded IN2P3-like workloads),
 ``kernels.ltsp_dp`` (the DP wavefront as a hand-written CUDA kernel plus its
-plain torch version), ``storage`` (the tape library) and ``serving`` (the
-schedule replay oracle).  Device entry points run on the card unless the
-caller asks for the CPU.
+plain torch version), ``storage`` (the tape library), ``serving`` (the
+online serving stack and the schedule replay oracle), ``obs``
+(observability), ``fleet`` (N libraries federated behind one arrival stream)
+and ``launch`` (the tape-serving command line).  Device entry points run on
+the card unless the caller asks for the CPU.
 """

@@ -155,7 +155,7 @@ DEFAULT_BUDGET = ComputeBudget()
 
 @dataclasses.dataclass(frozen=True)
 class FleetOptions:
-    """Federation shape for the fleet serving layer (not yet ported).
+    """Federation shape for the fleet serving layer (:mod:`repro_torch.fleet`).
 
     Rides :class:`ExecutionContext` so launchers and helpers can thread the
     federation configuration through the same object that already carries

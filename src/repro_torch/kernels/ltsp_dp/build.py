@@ -54,6 +54,11 @@ SOURCES: dict[str, dict[str, tuple[list, type]]] = {
         # C, x, dets, counts, stack, B, R, S, stream
         "ltsp_traceback": ([_P] * 5 + [_I] * 3 + [_P], _I),
     },
+    # a latency probe for the traceback's bound, launched by chip_smoke.py only
+    "pointer_chase": {
+        # next, steps, start, out, stream
+        "pointer_chase": ([_P, _I, _I, _P, _P], _I),
+    },
 }
 
 

@@ -1,0 +1,2 @@
+"""Command-line entry points of the port: ``python -m repro_torch.launch.serve``
+serves tape traces on one library or a federation (see :mod:`.serve`)."""

@@ -6,8 +6,8 @@ mount scheduling (:mod:`.drives`), the discrete-event simulator oracle and
 report types (:mod:`.sim`), the QoS layer (:mod:`.qos`), and the opt-in
 fault-injection / crash-recovery layer (:mod:`.faults`).
 
-Everything here simulates *one* robotic library (the fleet layer that
-federates N of these servers is not ported yet).
+Everything here simulates *one* robotic library; :mod:`repro_torch.fleet`
+federates N of these servers behind one arrival stream.
 
 **Observability.**  The serving loop is instrumented end to end through
 the opt-in :mod:`repro_torch.obs` bundle: attach one via

@@ -137,9 +137,9 @@ class ShardOutage:
     """Every drive of federation shard ``shard`` hard-fails at time ``at``.
 
     The shared-fault-domain analogue of :class:`DriveFailure`: a whole
-    robotic library (one shard of the fleet layer, not ported yet) goes dark
-    at one virtual instant — power loss, arm jam, network partition.  The
-    fleet layer expands it into per-drive hard failures on the shard (each
+    robotic library (one shard of :mod:`repro_torch.fleet`) goes dark at one
+    virtual instant — power loss, arm jam, network partition.  The fleet
+    layer (:class:`~repro_torch.fleet.FleetServer`) expands it into per-drive hard failures on the shard (each
     through the standard :meth:`OnlineTapeServer._fail_drive` abort/requeue
     machinery) and then re-routes every orphaned queued request that has a
     replica on a surviving shard.  Requests without a surviving replica

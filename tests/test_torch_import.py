@@ -41,6 +41,8 @@ SERVING_SLICE = [
     "repro_torch.data.traces", "repro_torch.distributed", "repro_torch.distributed.checkpoint",
     "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.metrics",
     "repro_torch.obs.kernel", "repro_torch.obs.export",
+    "repro_torch.fleet", "repro_torch.fleet.placement", "repro_torch.fleet.report",
+    "repro_torch.fleet.server", "repro_torch.launch", "repro_torch.launch.serve",
 ]
 
 
@@ -60,7 +62,8 @@ def test_serving_slice_imports_with_jax_blocked(module):
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in
-                                        [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]))
+                                        [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+                                         *(ROOT / "examples" / "torch").glob("*.py")]))
 def test_no_import_of_jax_or_the_jax_package(path):
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
     offending = [line for line in (ROOT / path).read_text().splitlines() if pattern.match(line)]

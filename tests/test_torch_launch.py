@@ -1,0 +1,197 @@
+"""The port's tape-serving launcher against the JAX package's.
+
+``python -m repro_torch.launch.serve --serve-tape-queue|--serve-tape-fleet``
+must print the reference launcher's tables on the same seeds: on ``python``
+against the reference's ``python``, and on ``torch --tape-device cpu`` (the
+kernels' plain version) against the reference's ``pallas-interpret``, with
+the wall-time column of each row dropped.  The port's launcher runs on the
+card by default, never falls back to another backend, and refuses the
+language-model modes it does not have yet.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.launch import serve as ref_serve
+from repro_torch.launch import serve as port_serve
+
+pytestmark = pytest.mark.port
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SCENARIOS = {
+    "queue": ["--serve-tape-queue", "--tape-requests", "80"],
+    "queue-pool-qos": ["--serve-tape-queue", "--tape-requests", "80", "--tape-drives", "2",
+                       "--tape-mount-cost", "150000", "--tape-tightness", "8000000"],
+    "queue-heavy-faults": ["--serve-tape-queue", "--tape-requests", "60", "--tape-drives", "2",
+                           "--tape-fault-profile", "heavy", "--tape-admission",
+                           "per-drive-accumulate"],
+    "queue-selector": ["--serve-tape-queue", "--tape-requests", "60", "--tape-selector",
+                       "cost-model", "--tape-budget", "120", "--tape-admission", "accumulate"],
+    "fleet-outage": ["--serve-tape-fleet", "--tape-requests", "90", "--fleet-outage-at",
+                     "1500000", "--fleet-outage-shard", "1", "--tape-drives", "2",
+                     "--tape-mount-cost", "150000"],
+    "fleet-qos": ["--serve-tape-fleet", "--tape-requests", "60", "--tape-tightness", "8000000",
+                  "--fleet-placement", "replica-affinity"],
+}
+#: the port's backend flags standing for each reference backend
+PORT_FLAGS = {
+    "python": ["--tape-backend", "python"],
+    "pallas-interpret": ["--tape-backend", "torch", "--tape-device", "cpu"],
+}
+WALL = re.compile(r" \(\d+ ms wall(?:\)$|; )")
+
+
+def table(out: str) -> list[str]:
+    """The printed table (header and rows), each row's wall time dropped."""
+    lines = out.splitlines()
+    start = next(i for i, line in enumerate(lines)
+                 if line.startswith(("admission,", "placement,")))
+    rows = []
+    for line in lines[start:]:
+        if "," not in line:
+            break
+        rows.append(WALL.sub(lambda m: " (" if m.group(0).endswith("; ") else "", line))
+    return rows
+
+
+def run_ref(args, capsys, monkeypatch) -> tuple[int, str]:
+    monkeypatch.setattr(sys, "argv", ["serve", *args])
+    with pytest.raises(SystemExit) as done:
+        ref_serve.main()
+    return done.value.code, capsys.readouterr().out
+
+
+def run_port(args, capsys) -> tuple[int, str]:
+    code = port_serve.main(args)
+    return code, capsys.readouterr().out
+
+
+#: the selector's ladder reaches heuristics, which run only on ``python``
+CASES = [(name, backend) for name in sorted(SCENARIOS) for backend in sorted(PORT_FLAGS)
+         if not (name == "queue-selector" and backend != "python")]
+
+
+@pytest.mark.parametrize("name,backend", CASES)
+def test_tables_match_reference_launcher(name, backend, capsys, monkeypatch):
+    ref_code, ref_out = run_ref([*SCENARIOS[name], "--tape-backend", backend], capsys,
+                                monkeypatch)
+    code, out = run_port([*SCENARIOS[name], *PORT_FLAGS[backend]], capsys)
+    assert code == ref_code == 0
+    assert table(out) == table(ref_out)
+    assert len(table(out)) > 1
+
+
+def test_selector_heuristics_refuse_a_device_backend_in_both(capsys, monkeypatch):
+    args = SCENARIOS["queue-selector"]
+    with pytest.raises(ValueError) as ref_err:
+        run_ref([*args, "--tape-backend", "pallas-interpret"], capsys, monkeypatch)
+    with pytest.raises(ValueError) as err:
+        run_port([*args, *PORT_FLAGS["pallas-interpret"]], capsys)
+    assert type(err.value).__name__ == type(ref_err.value).__name__ == "UnsupportedBackendError"
+    assert str(err.value) == str(ref_err.value).replace("pallas-interpret", "torch")
+
+
+def test_defaults_run_on_the_card():
+    args = port_serve.build_parser().parse_args([])
+    assert (args.tape_backend, args.tape_device) == ("cuda", "cuda")
+    assert port_serve._device_context(args) == dict(backend="cuda", device="cuda",
+                                                    numeric_policy="f64")
+    assert (args.tape_requests, args.tape_window, args.tape_seed) == (300, 400_000, 20260731)
+    assert (args.fleet_shards, args.fleet_replicas) == (3, 2)
+
+
+def test_cuda_backend_on_the_cpu_raises(capsys):
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        port_serve.main(["--serve-tape-queue", "--tape-requests", "10", "--tape-admission",
+                         "accumulate", "--tape-device", "cpu"])
+
+
+def test_cuda_backend_without_a_card_raises(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the cuda backend runs")
+    for mode in ("--serve-tape-queue", "--serve-tape-fleet"):
+        with pytest.raises(RuntimeError, match="sees no CUDA device"):
+            port_serve.main([mode, "--tape-requests", "10"])
+
+
+def test_int32_guard_failure_raises_without_fallback(capsys):
+    """Under the strict policy a device backend raises the guard's own message
+    and does not re-route to ``python``; the launcher solves such instances
+    in exact float64 tables, and its table then matches ``python``'s."""
+    from repro_torch.core.solver import ExecutionContext
+    from repro_torch.serving.drives import DriveCosts
+    from repro_torch.serving.queue import serve_trace
+    from repro_torch.serving.sim import demo_library, poisson_trace
+
+    seed = 20260731
+    trace = poisson_trace(demo_library(seed, n_files=48), n_requests=240,
+                          mean_interarrival=250_000, seed=seed)
+    lib = demo_library(seed, n_files=48)
+    strict = ExecutionContext(backend="torch", device="cpu", numeric_policy="strict")
+    with pytest.raises(ValueError, match="even after gcd rescaling"):
+        serve_trace(lib, trace, "accumulate", window=400_000, n_drives=2,
+                    drive_costs=DriveCosts(mount=150_000), context=strict)
+    args = ["--serve-tape-queue", "--tape-requests", "240", "--tape-admission", "accumulate",
+            "--tape-files", "48", "--tape-drives", "2", "--tape-mount-cost", "150000"]
+    code, out = run_port([*args, "--tape-backend", "torch", "--tape-device", "cpu"], capsys)
+    python_code, python_out = run_port([*args, "--tape-backend", "python"], capsys)
+    assert code == python_code == 0
+    cells = slice(-2, None)  # cells, reused: dense table cells on a device backend
+    assert [row.split(",")[:9] for row in table(out)] == \
+        [row.split(",")[:9] for row in table(python_out)]
+    assert [row.split(",")[cells] for row in table(out)][1:] != \
+        [row.split(",")[cells] for row in table(python_out)][1:]
+
+
+@pytest.mark.parametrize("args", [[], ["--restore-from-tape"],
+                                  ["--restore-from-tape", "--serve-tape-queue"]])
+def test_lm_modes_exit_nonzero(args, capsys):
+    assert port_serve.main(args) == 2
+    assert "ROADMAP item A9" in capsys.readouterr().err
+
+
+def test_module_entry_point_runs_without_jax():
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.argv = ['serve', '--serve-tape-fleet', '--tape-requests', '30',\n"
+            "            '--tape-backend', 'python']\n"
+            "runpy.run_module('repro_torch.launch.serve', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert table(proc.stdout)[0].startswith("placement,served,failed,rerouted")
+
+
+@pytest.mark.parametrize("mode", ["--serve-tape-queue", "--serve-tape-fleet"])
+def test_written_files_match_reference_launcher(mode, tmp_path, capsys, monkeypatch):
+    """The files a run writes (span log, Chrome trace, Prometheus snapshot,
+    and for the queue the recorded trace and the event journal) are the
+    reference launcher's bytes on ``python``."""
+    written = {}
+    for name in ("ref", "port"):
+        out = tmp_path / name
+        out.mkdir()
+        args = [mode, "--tape-requests", "60", "--tape-drives", "2", "--tape-mount-cost",
+                "150000", "--tape-backend", "python", "--tape-trace-out", str(out / "spans.jsonl"),
+                "--tape-metrics-out", str(out / "metrics.prom")]
+        if mode == "--serve-tape-queue":
+            args += ["--tape-admission", "accumulate", "--tape-journal", str(out / "journal"),
+                     "--record-trace", str(out / "trace.jsonl")]
+        else:
+            args += ["--fleet-placement", "replica-affinity", "--fleet-outage-at", "1500000"]
+        if name == "ref":
+            code, printed = run_ref(args, capsys, monkeypatch)
+        else:
+            code, printed = run_port(args, capsys)
+        assert code == 0
+        written[name] = (table(printed), {p.name: p.read_bytes() for p in sorted(out.iterdir())})
+    assert written["port"] == written["ref"]
+    assert len(written["port"][1]) == (5 if mode == "--serve-tape-queue" else 3)

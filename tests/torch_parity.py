@@ -15,22 +15,25 @@ import types
 
 import repro.core
 import repro.data.traces
+import repro.fleet
 import repro.obs
 import repro.serving
 import repro.storage.tape
 import repro_torch.core
 import repro_torch.data.traces
+import repro_torch.fleet
 import repro_torch.obs
 import repro_torch.serving
 import repro_torch.storage.tape
 
 REF = types.SimpleNamespace(
     name="ref", core=repro.core, serving=repro.serving, traces=repro.data.traces,
-    obs=repro.obs, tape=repro.storage.tape,
+    obs=repro.obs, tape=repro.storage.tape, fleet=repro.fleet,
 )
 PORT = types.SimpleNamespace(
     name="port", core=repro_torch.core, serving=repro_torch.serving,
     traces=repro_torch.data.traces, obs=repro_torch.obs, tape=repro_torch.storage.tape,
+    fleet=repro_torch.fleet,
 )
 
 #: the port's backend names onto the JAX package's
