@@ -19,7 +19,14 @@ through an outage, timed per shard: 8b a burst that every shard drains in one
 window, 8c a trace three windows long that dispatches before and after the
 outage and has batches in flight when it strikes; 8d runs every example of
 ``examples/torch/`` with its defaults (the card) and on ``python``, and holds
-their numbers equal.  Every phase fails the run on any mismatch.
+their numbers equal.  Phase 9 serves a language model: 9a Qwen2.5-3B at full
+width on the card (float32 decode against forward, then bf16 serving,
+timed); 9b the restore of its checkpoint from tape, planned under ``dp`` and
+``simpledp`` through the CUDA kernels and held equal to ``python``, the
+launcher's ``--restore-from-tape`` on ``cuda`` and ``python`` and its LM mode
+on the card (its default command, and every dense decoder); 9c the
+``tape_restore`` and ``serve_batched`` examples.  Every phase fails the run
+on any mismatch.
 
 Usage, from the root of a checkout, on a machine with a CUDA card::
 
@@ -198,6 +205,21 @@ FLEET_SPREAD_TRACE = dict(n_requests=50_000, mean_interarrival=2_400, seed=SERVE
 EXAMPLES = ("quickstart", "online_serving", "qos_serving", "fault_serving", "fleet_serving",
             "observability")
 EXAMPLE_DEVICE_ROWS = {"fault_serving": "fail-stop", "online_serving": "dp (fixed)"}
+#: phase 9: the language model served at full width, and its restore
+LM_ARCH = "qwen2.5-3b"
+#: 9a: the float32 decode-vs-forward check (the reference's own bound,
+#: tests/test_models.py) and the bf16 serving run
+LM_CHECK = dict(batch=2, seq=16, rel_bound=2e-3)
+LM_SERVE = dict(batch=8, prompt=128, new=64)
+#: 9b: the tape_restore example's library, four bytes an element, two
+#: consumers a shard and eight for the embedding
+LM_ARCHIVE = dict(capacity_per_tape=4 * 10**9, u_turn=20_000_000)
+#: 9b: the launcher's --restore-from-tape runs, each on cuda and python,
+#: and the launcher's LM mode on the card: its default command (Qwen2.5-3B at
+#: full width) and the other dense decoders reduced
+LM_LAUNCHER_ARCHS = ("qwen2.5-3b", "granite-8b")
+LM_LAUNCHER_SERVES = {"default": [], "yi-34b": ["--arch", "yi-34b", "--reduced"],
+                      "deepseek-coder-33b": ["--arch", "deepseek-coder-33b", "--reduced"]}
 
 
 def serving_exactness(dev: str) -> None:
@@ -941,6 +963,265 @@ def examples_on_the_card() -> None:
                 proc.wait()
 
 
+def lm_serving(dev: str) -> tuple:
+    """Phase 9a: Qwen2.5-3B at full width on the card.  Float32 decode at
+    every position must reproduce the full-sequence forward; then the
+    default bf16 compute serves a batch through ``make_serve_step``, timed,
+    with every logit finite.  Returns the parameters, for 9b."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import decode_step, forward, init_cache, init_model
+    from repro_torch.serving.serve import make_serve_step
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise SystemExit("phase 9a FAILED: float32 products would run in TF32")
+    cfg = ARCHS[LM_ARCH]
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"phase 9a: {LM_ARCH} at full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
+        f"{n_params} parameters, {n_params * 4 / 2**30:.3f} GiB in float32, initialised in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # float32: decode at every position against the full-sequence forward
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    B, L = LM_CHECK["batch"], LM_CHECK["seq"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, L), device=dev,
+                           generator=torch.Generator(dev).manual_seed(2))
+    full, _ = forward(params, cfg32, tokens)
+    cache = init_cache(cfg32, B, L, device=dev)
+    dec = torch.stack([decode_step(params, cfg32, tokens[:, t : t + 1], cache, t)[0][:, 0]
+                       for t in range(L)], dim=1)
+    rel = float((dec - full).abs().max() / full.abs().max())
+    if not (rel < LM_CHECK["rel_bound"] and bool(torch.isfinite(full).all())):
+        raise SystemExit(f"phase 9a FAILED: float32 decode != forward, rel {rel}")
+    log(f"phase 9a: float32 decode at all {L} positions == forward (B={B}): rel "
+        f"max|dec - full| / max|full| = {rel:.3e} < {LM_CHECK['rel_bound']} "
+        f"({time.perf_counter() - t0:.3f} s with the initialisation)")
+    del full, dec, cache
+
+    # bf16 (the config's compute dtype): a batch served through make_serve_step
+    Bs, P, N = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["new"]
+    serve = make_serve_step(cfg)
+    cache = init_cache(cfg, Bs, P + N, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (Bs, P), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for t in range(P - 1):  # teacher-forced prefill, as the launcher does
+        _, logits, cache = serve(params, cache, prompts[:, t : t + 1], t)
+        finite &= torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    tok, outs = prompts[:, -1:], []
+    t0 = time.perf_counter()
+    for t in range(N):
+        tok, logits, cache = serve(params, cache, tok, P - 1 + t)
+        finite &= torch.isfinite(logits).all()
+        outs.append(tok)
+    out = torch.cat(outs, 1).cpu()
+    t_decode = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    in_range = 0 <= out.min() and out.max() < cfg.vocab_size
+    if not bool(finite) or out.shape != (Bs, N) or not in_range:
+        raise SystemExit("phase 9a FAILED: a bf16 logit is not finite or a token is out of range")
+    step_ms = 1e3 * t_decode / N
+    # the least a step must move: every float32 parameter read once
+    bound = n_params * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"phase 9a: bf16 serving, batch {Bs}: prefill {P - 1} steps in {t_prefill:.3f} s "
+        f"({1e3 * t_prefill / (P - 1):.3f} ms a step); decode {N} steps in {t_decode:.3f} s: "
+        f"{step_ms:.3f} ms a step, {Bs * N / t_decode:.1f} tok/s; bound of a step (float32 "
+        f"parameters read once) {bound:.3f} ms; peak device memory {peak / 2**30:.3f} GiB; "
+        f"all logits finite; first sequence {out[0, :12].tolist()}")
+
+    # where a decode step's time goes: four steps under the profiler, its
+    # kernel events (device time) apart from its operator events (host)
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(4):
+                tok, _, cache = serve(params, cache, tok, P + N - 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels, n_ops = [], 0
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA:
+                dev_us = getattr(evt, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = evt.self_cuda_time_total
+                kernels.append((dev_us, evt.key, evt.count))
+            elif evt.key.startswith("aten::"):
+                n_ops += evt.count
+        total = sum(k[0] for k in kernels)
+        log(f"phase 9a: profiler, 4 decode steps: {1e3 * wall / 4:.3f} ms wall and "
+            f"{total / 4e3:.3f} ms of kernel time a step ({100 * total / 1e6 / wall:.1f}% "
+            f"busy), {sum(k[2] for k in kernels) / 4:.0f} kernels and {n_ops / 4:.0f} aten "
+            f"operators a step")
+        for dev_us, key, count in sorted(kernels, reverse=True)[:8]:
+            log(f"  {100 * dev_us / max(total, 1):5.1f}% {dev_us / 4e3:8.3f} ms/step "
+                f"x{count // 4}: {key[:100]}")
+    except RuntimeError as e:  # the profiler is not needed for any check
+        log(f"phase 9a: profiler not measured ({e})")
+    del cache
+    return params
+
+
+def lm_restore(params, dev: str) -> dict:
+    """Phase 9b: the full-width checkpoint archived to tape and its restore
+    planned under ``dp`` and ``simpledp`` on the card, in float64 tables,
+    held equal to ``python``.  Returns the launches of the plans."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import ExecutionContext
+    from repro_torch.distributed.checkpoint import archive_to_tape, plan_restore
+    from repro_torch.kernels.ltsp_dp import ltsp_dp
+    from repro_torch.storage.tape import TapeLibrary
+
+    lib = TapeLibrary(**LM_ARCHIVE)
+    shards = archive_to_tape(lib, LM_ARCH, params, bytes_per_elem=4)
+    consumers = {s: 8 if "embed" in s else 2 for s in shards}
+    cuda = ExecutionContext(backend="cuda", device=dev, numeric_policy="f64")
+    ltsp_dp.reset_launches()
+    plans, walls = {}, {}
+    for policy in ("dp", "simpledp"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plans[policy] = plan_restore(lib, shards, consumers, policy=policy, context=cuda)
+        torch.cuda.synchronize()
+        walls[policy] = time.perf_counter() - t0
+    launches = dict(ltsp_dp.LAUNCHES)
+
+    def plain(read_plans):
+        return [dataclasses.replace(p, backend="") for p in read_plans]
+
+    for policy, got in plans.items():
+        want = plan_restore(lib, shards, consumers, policy=policy,
+                            context=ExecutionContext(backend="python"))
+        if plain(got) != plain(want) or any(p.backend != "cuda" for p in got):
+            raise SystemExit(f"phase 9b FAILED: {policy} restore plans on cuda != python")
+    if launches["far_fold_kernel"] + launches["near_fold_kernel"] == 0 or \
+            launches["traceback_kernel"] == 0:
+        raise SystemExit(f"phase 9b FAILED: the restore plans launched {launches}")
+    n_req = sum(consumers.values())
+    for policy, got in plans.items():
+        mean = sum(p.total_cost for p in got) / n_req
+        log(f"phase 9b: {policy}: {len(shards)} shards on {len(lib.tapes)} cartridges "
+            f"({[len(p.order) for p in got]} shards each), mean arrival {mean:.6g}, planned on "
+            f"cuda in {1e3 * walls[policy]:.3f} ms wall, == python")
+    log(f"phase 9b: launches of the restore plans {launches}")
+    return launches
+
+
+def restore_line(out: str) -> tuple[str, str]:
+    """The launcher's restore line: (backend, the line without its two times)."""
+    import re
+
+    m = re.search(r"^tape restore \[(\w+)/(\w+)\]: (.*) \(planned in \d+ ms; re-plan \d+ ms, "
+                  r"(cache .*)\)$", out, re.M)
+    if m is None:
+        raise SystemExit(f"phase 9b FAILED: the launcher printed no restore line:\n{out[-2000:]}")
+    return m.group(2), f"[{m.group(1)}]: {m.group(3)} ({m.group(4)})"
+
+
+def served_line(out: str) -> str:
+    """The launcher's LM serving line (tokens in seconds, tok/s)."""
+    import re
+
+    served = re.search(r"^\S+: \d+x\d+ tokens in .*tok/s\)$", out, re.M)
+    if served is None or "first sequence: [" not in out:
+        raise SystemExit(f"phase 9b FAILED: the launcher served nothing:\n{out[-2000:]}")
+    return served.group(0)
+
+
+def lm_processes() -> None:
+    """Phases 9b (the launcher) and 9c (the two new examples), all as
+    processes at once, each in a directory of its own: the launcher's
+    ``--reduced --restore-from-tape`` on ``cuda`` and on ``python`` must
+    print the same restore line but for its times, its LM mode must serve
+    on the card (the default command, Qwen2.5-3B at full width, and the
+    other dense decoders reduced), ``tape_restore`` the
+    same numbers with its default (``cuda``) and ``--backend python``, and
+    ``serve_batched`` must serve on the card (its default) and on the CPU."""
+    import os
+    import re
+    import shutil
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    work = ROOT / "build" / "chip_smoke_lm"
+    shutil.rmtree(work, ignore_errors=True)
+    example = ROOT / "examples" / "torch"
+    runs = {}
+    for arch in LM_LAUNCHER_ARCHS:
+        for backend in ("cuda", "python"):
+            runs["launcher", arch, backend] = [
+                "-m", "repro_torch.launch.serve", "--arch", arch, "--reduced",
+                "--restore-from-tape", "--tape-backend", backend]
+    for name, args in LM_LAUNCHER_SERVES.items():
+        runs["launcher", name] = ["-m", "repro_torch.launch.serve", *args]
+    runs["tape_restore", "cuda"] = [str(example / "tape_restore.py")]
+    runs["tape_restore", "python"] = [str(example / "tape_restore.py"), "--backend", "python"]
+    runs["serve_batched", "cuda"] = [str(example / "serve_batched.py")]
+    runs["serve_batched", "cpu"] = [str(example / "serve_batched.py"), "--device", "cpu"]
+    procs = {}
+    try:
+        for key, args in runs.items():
+            cwd = work / "-".join(key)
+            cwd.mkdir(parents=True)
+            procs[key] = subprocess.Popen([sys.executable, *args], cwd=cwd, env=env,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True)
+        printed = {}
+        for key, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise SystemExit(f"phase 9 FAILED: {' '.join(key)} exited {proc.returncode}:\n"
+                                 f"{err[-3000:]}")
+            printed[key] = out
+        for arch in LM_LAUNCHER_ARCHS:
+            lines = {b: restore_line(printed["launcher", arch, b]) for b in ("cuda", "python")}
+            if lines["cuda"] != ("cuda", lines["python"][1]) or lines["python"][0] != "python":
+                raise SystemExit(f"phase 9b FAILED: launcher --arch {arch} --reduced "
+                                 f"--restore-from-tape: cuda {lines['cuda']} != python "
+                                 f"{lines['python']}")
+            served = served_line(printed["launcher", arch, "cuda"])
+            log(f"phase 9b: launcher --arch {arch} --reduced --restore-from-tape: restore line "
+                f"cuda == python ({lines['cuda'][1]}); {served}")
+        for name in LM_LAUNCHER_SERVES:
+            log(f"phase 9b: launcher {' '.join(runs['launcher', name][2:]) or '(defaults)'} on "
+                f"the card: {served_line(printed['launcher', name])}")
+        cuda = example_numbers(printed["tape_restore", "cuda"], None)
+        if cuda != example_numbers(printed["tape_restore", "python"], None) or len(cuda) <= 5:
+            raise SystemExit("phase 9c FAILED: example tape_restore: cuda numbers != python")
+        log(f"phase 9c: example tape_restore: {len(cuda)} numbers, cuda (default) == python")
+        for line in printed["tape_restore", "cuda"].splitlines():
+            if line.startswith(("dp ", "simpledp ")):
+                log(f"  cuda: {line}")
+        for device in ("cuda", "cpu"):
+            out = printed["serve_batched", device]
+            decode = re.search(r"^decode: .*tok/s batch-aggregate\)$", out, re.M)
+            if f"device={device}" not in out or decode is None or "  seq2: [" not in out:
+                raise SystemExit(f"phase 9c FAILED: example serve_batched on {device}:\n{out}")
+            log(f"phase 9c: example serve_batched on {device}: {decode.group(0)}")
+        shutil.rmtree(work, ignore_errors=True)
+    finally:  # no process outlives the phase, whatever failed
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
 def main() -> int:
     import torch
 
@@ -1376,6 +1657,19 @@ def main() -> int:
     t0 = time.perf_counter()
     examples_on_the_card()
     phases["8d examples on the card"] = time.perf_counter() - t0
+
+    # ---- phase 9: the language model at full width, and its restore ----------
+    t0 = time.perf_counter()
+    params = lm_serving(dev)
+    phases["9a Qwen2.5-3B at full width"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_launches["9b restore plans"] = lm_restore(params, dev)
+    del params
+    torch.cuda.empty_cache()
+    phases["9b restore plans"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm_processes()
+    phases["9b/9c launcher and examples"] = time.perf_counter() - t0
 
     # the kernels line counts the launches of every path, each path's counts
     # set to 0 just before it and read just after

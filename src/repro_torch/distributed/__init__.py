@@ -1,6 +1,6 @@
-"""Distributed helpers of the port.  So far the tape half of
-:mod:`.checkpoint` (archive and LTSP-planned restore)."""
+"""Distributed helpers of the port.  So far :mod:`.checkpoint`: the hot tier
+(save/load) and the tape archive with its LTSP-planned restore."""
 
-from .checkpoint import archive_to_tape, plan_restore
+from .checkpoint import archive_to_tape, load_checkpoint, plan_restore, save_checkpoint
 
-__all__ = ["archive_to_tape", "plan_restore"]
+__all__ = ["archive_to_tape", "load_checkpoint", "plan_restore", "save_checkpoint"]

@@ -1,6 +1,12 @@
-"""Checkpoint archive restore planned by the LTSP solvers (the tape half).
+"""Checkpointing with LTSP-scheduled archive restore.
 
-A checkpoint's shards are written sequentially to the simulated tape library
+Two tiers:
+
+* **hot tier** — a plain directory of ``.npy`` leaves + ``manifest.json``
+  (:func:`save_checkpoint`/:func:`load_checkpoint`: bit-exact, the
+  reference's file names and manifest keys, so either package reads what
+  the other wrote);
+* **archive tier** — a checkpoint's shards are written sequentially to the simulated tape library
 (:func:`archive_to_tape`).  A multi-pod restore requests every shard once per
 consumer pod (that multiplicity is exactly LTSP's request multiplicity); the
 restore read order is produced by the paper's DP/SimpleDP schedulers
@@ -8,31 +14,53 @@ restore read order is produced by the paper's DP/SimpleDP schedulers
 start resharding work as early as possible instead of waiting for a
 positional sweep.
 
-Shard names follow the JAX package's pytree paths: nested ``dict``/``list``/
+Leaf names follow the JAX package's pytree paths: nested ``dict``/``list``/
 ``tuple`` containers of numpy arrays or torch tensors flatten depth-first,
 dict keys in sorted order, sequence entries by index, ``None`` as an empty
-subtree, joined with ``::``.  The hot tier (``save_checkpoint``/
-``load_checkpoint``) is not ported yet.
+subtree, joined with ``::``.  A :class:`torch.nn.Module` flattens as the
+dict of its parameters and children (an ``nn.ModuleList`` as a list), so
+the port's model archives under the reference's names.
 """
 
 from __future__ import annotations
 
+import json
+import pathlib
+import re
 from typing import Any
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..storage.tape import ReadPlan, TapeLibrary
 
-__all__ = ["archive_to_tape", "plan_restore"]
+__all__ = [
+    "save_checkpoint",
+    "load_checkpoint",
+    "archive_to_tape",
+    "plan_restore",
+    "named_leaves",
+]
 
 _SEP = "::"
+
+
+def _as_container(tree):
+    """A module as the container it stands for: an ``nn.ModuleList`` as a
+    list, any other module as the dict of its parameters and children."""
+    if isinstance(tree, nn.ModuleList):
+        return list(tree)
+    if isinstance(tree, nn.Module):
+        return {**dict(tree.named_parameters(recurse=False)), **dict(tree.named_children())}
+    return tree
 
 
 def _leaves(tree, path: tuple[str, ...] = ()):
     """``(path, leaf)`` pairs of a nested container, in pytree order."""
     if tree is None:
         return
+    tree = _as_container(tree)
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], (*path, str(k)))
@@ -47,9 +75,108 @@ def _numel(leaf: Any) -> int:
     return leaf.numel() if isinstance(leaf, torch.Tensor) else np.asarray(leaf).size
 
 
+def named_leaves(tree) -> list[tuple[str, Any]]:
+    """``(name, leaf)`` of every leaf, in pytree order."""
+    return [(_SEP.join(path), leaf) for path, leaf in _leaves(tree)]
+
+
 def _flatten_with_names(tree) -> list[tuple[str, int]]:
     """``(name, numel)`` of every leaf, in pytree order."""
-    return [(_SEP.join(path), _numel(leaf)) for path, leaf in _leaves(tree)]
+    return [(name, _numel(leaf)) for name, leaf in named_leaves(tree)]
+
+
+def _structure(tree) -> str:
+    """The tree's containers in ``PyTreeDef`` notation (``*`` a leaf), which
+    is what JAX's ``str(treedef)`` prints for dicts, lists, tuples and None."""
+    tree = _as_container(tree)
+    if tree is None:
+        return "None"
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {_structure(tree[k])}" for k in sorted(tree)) + "}"
+    if isinstance(tree, list):
+        return "[" + ", ".join(_structure(t) for t in tree) + "]"
+    if isinstance(tree, tuple):
+        inner = ", ".join(_structure(t) for t in tree)
+        return f"({inner},)" if len(tree) == 1 else f"({inner})"
+    return "*"
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _file_name(i: int, tree_name: str, leaf_name: str) -> str:
+    return f"{i:05d}_" + re.sub(r"[^A-Za-z0-9_.-]", "_", f"{tree_name}{_SEP}{leaf_name}") + ".npy"
+
+
+# ---------------------------------------------------------------------------
+# hot tier
+# ---------------------------------------------------------------------------
+def save_checkpoint(path: str | pathlib.Path, step: int, **trees: Any) -> None:
+    """Write named trees (e.g. ``params=model``) as ``.npy`` leaves + manifest.
+
+    The file names and manifest keys are the reference's.  Its ``treedef``
+    entry is JAX's ``str(treedef)``, which needs JAX; the port writes its own
+    rendering of the tree's containers there (:func:`_structure`: the same
+    text for dicts, lists, tuples and None, a module written as the dict of
+    its parameters and children).  Neither package reads the entry back:
+    both load by a template.
+    """
+    path = pathlib.Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    manifest: dict[str, Any] = {"step": int(step), "trees": {}}
+    for tree_name, tree in trees.items():
+        leaves = [(n, _to_numpy(leaf)) for n, leaf in named_leaves(tree)]
+        manifest["trees"][tree_name] = {
+            "treedef": f"PyTreeDef({_structure(tree)})",
+            "leaves": [
+                {"name": n, "shape": list(a.shape), "dtype": str(a.dtype)}
+                for n, a in leaves
+            ],
+        }
+        files = [_file_name(i, tree_name, n) for i, (n, _) in enumerate(leaves)]
+        for f, (_, arr) in zip(files, leaves):
+            np.save(path / f, arr)
+        manifest["trees"][tree_name]["files"] = files
+    (path / "manifest.json").write_text(json.dumps(manifest))
+
+
+def _unflatten(template, arrays):
+    """``template``'s containers with its leaves taken from ``arrays`` in
+    pytree order (dicts come back with their keys sorted, as JAX's do)."""
+    if template is None:
+        return None
+    if isinstance(template, dict):
+        return {k: _unflatten(template[k], arrays) for k in sorted(template)}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_unflatten(t, arrays) for t in template)
+    return next(arrays)
+
+
+def load_checkpoint(path: str | pathlib.Path, **templates: Any):
+    """Restore trees by structure templates -> ``(step, {name: tree})``.
+
+    A container template comes back as the same containers holding numpy
+    arrays; a module template (the port's model) has the arrays copied into
+    its parameters, each checked by name, shape and dtype
+    (:func:`repro_torch.models.convert.load_named`), and comes back itself.
+    """
+    path = pathlib.Path(path)
+    manifest = json.loads((path / "manifest.json").read_text())
+    out = {}
+    for tree_name, template in templates.items():
+        info = manifest["trees"][tree_name]
+        arrays = [np.load(path / f) for f in info["files"]]
+        if isinstance(template, nn.Module):
+            from ..models.convert import load_named
+
+            names = [leaf["name"] for leaf in info["leaves"]]
+            out[tree_name] = load_named(template, dict(zip(names, arrays)))
+        else:
+            out[tree_name] = _unflatten(template, iter(arrays))
+    return manifest["step"], out
 
 
 # ---------------------------------------------------------------------------

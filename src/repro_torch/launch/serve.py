@@ -1,26 +1,41 @@
-"""Tape-serving launcher of the port: one library or a federation of them.
+"""Serving launcher of the port: batched greedy decoding of a language model,
+optionally after an LTSP-planned restore from the tape archive, and the two
+tape-serving modes (one library, or a federation of them).
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced \
+      --batch 8 --new-tokens 32 --restore-from-tape
   PYTHONPATH=src python -m repro_torch.launch.serve --serve-tape-queue \
       --tape-requests 150 --tape-drives 2 --tape-mount-cost 150000
   PYTHONPATH=src python -m repro_torch.launch.serve --serve-tape-fleet \
       --tape-requests 90 --fleet-outage-at 1500000 --fleet-outage-shard 1
 
-Both modes solve on the card by default: ``--tape-backend cuda`` builds every
-dispatch's DP tables with the hand-written CUDA kernels on ``--tape-device
-cuda``.  ``--tape-backend torch --tape-device cpu`` runs the same tables
-through their plain torch version on the CPU, and ``--tape-backend python``
-runs the exact host DP; all three print the same tables (the ``cells`` and
-``reused`` columns count dense table cells on ``cuda``/``torch`` and real
-DP cells on ``python``).  Both modes build their contexts with
-``numeric_policy="f64"``: an instance past the int32 device guard is solved
-exactly in a float64 table on the same device (the queue mode's default
-trace has such dispatches).  Nothing falls back: a backend that cannot run
-(``cuda`` without a card) raises with its own message.
+Everything runs on the card by default: the model on ``--tape-device cuda``,
+and every DP table build (of the restore plan and of the tape modes) with
+the hand-written CUDA kernels (``--tape-backend cuda``).  ``--tape-backend
+torch --tape-device cpu`` runs the model and the same tables (their plain
+torch version) on the CPU, and ``--tape-backend python`` runs the exact host
+DP; all three print the same plans and tables (the ``cells`` and ``reused``
+columns count dense table cells on ``cuda``/``torch`` and real DP cells on
+``python``).  Every context is built with ``numeric_policy="f64"``: an
+instance past the int32 device guard is solved exactly in a float64 table
+on the same device.  Nothing falls back: a backend that cannot run (``cuda``
+without a card) raises with its own message.
 
-Serving a language model, and ``--restore-from-tape`` (the LTSP-planned
-checkpoint restore before it), need the language-model scaffolding, which
-the port does not have yet (ROADMAP item A9); without a tape mode, or with
-``--restore-from-tape``, the launcher says so and exits non-zero.
+Language-model serving
+----------------------
+Without a tape mode the launcher serves ``--arch`` (``--reduced`` for the
+smoke-test size): parameters drawn from a generator seeded 0, prompts from
+one seeded 1, a teacher-forced prefill of ``--prompt-len`` tokens through
+the decode step, then ``--new-tokens`` greedy steps; it prints the tokens/s
+and the first sequence.  ``--restore-from-tape`` first archives the
+parameters to a simulated tape library and plans their restore with
+``--tape-policy`` (the cold start of a serving fleet), printing the mean
+shard arrival.  At full width the reference's 4 MB cartridges cannot hold
+the embedding shard, and the archive raises ``tape ... full`` in both
+packages.  One device serves: ``--mesh pod|multipod`` needs the sharding
+slice (ROADMAP A9.6) and exits 2, as does an architecture whose mixers this
+slice does not apply (ROADMAP A9.1-A9.4).
 
 Online tape serving (``--serve-tape-queue``)
 --------------------------------------------
@@ -95,6 +110,7 @@ else in them is exact and deterministic given ``--tape-seed``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -102,11 +118,9 @@ import time
 from ..core.context import BACKENDS, ComputeBudget
 from ..core.solver import ExecutionContext, list_selectors, list_solvers
 
-LM_MODE_MESSAGE = (
-    "serving a language model (and --restore-from-tape, which plans its "
-    "checkpoint restore) needs the language-model scaffolding, which the port "
-    "does not have yet (ROADMAP item A9); run --serve-tape-queue or "
-    "--serve-tape-fleet"
+MESH_MESSAGE = (
+    "--mesh {mesh} shards the model over many devices, which needs the sharding "
+    "slice of the port (ROADMAP item A9.6); --mesh auto serves on one device"
 )
 
 
@@ -114,6 +128,88 @@ def _device_context(args) -> dict:
     """The context fields the tape flags choose: backend and device, with
     exact float64 tables for instances past the int32 guard."""
     return dict(backend=args.tape_backend, device=args.tape_device, numeric_policy="f64")
+
+
+def _restore_from_tape(params, policy: str, context: dict) -> None:
+    """Archive ``params`` to a simulated tape library and plan the restore.
+
+    The library context owns a :class:`~repro_torch.core.SolveCache`, so
+    the re-plan a recovering serving fleet issues for the *same* archive
+    never re-solves a tape: the second pass below is all cache hits and its
+    time is the pure memo-lookup cost.  The plan runs on ``context``'s
+    backend and device, with no fallback.
+    """
+    from ..core.solver import SolveCache
+    from ..distributed.checkpoint import archive_to_tape, plan_restore
+    from ..storage.tape import TapeLibrary
+
+    ctx = ExecutionContext(**context, cache=SolveCache())
+    lib = TapeLibrary(capacity_per_tape=4 * 10**6, u_turn=20_000, context=ctx)
+    shards = archive_to_tape(lib, "serve-warmup", params, bytes_per_elem=1)
+    consumers = {s: 2 for s in shards}  # every host group needs every shard
+    t0 = time.time()
+    plans = plan_restore(lib, shards, consumers, policy=policy)
+    dt = time.time() - t0
+    # warm re-plan: what the next cold start in the fleet pays
+    t0 = time.time()
+    plan_restore(lib, shards, consumers, policy=policy, context=ctx)
+    dt_warm = time.time() - t0
+    n_req = sum(consumers.values())
+    mean = sum(p.total_cost for p in plans) / n_req
+    last = max(max(p.service_time.values()) for p in plans)
+    stats = ctx.cache.stats()
+    print(
+        f"tape restore [{policy}/{ctx.backend}]: {len(shards)} shards on "
+        f"{len(lib.tapes)} tape(s), mean arrival {mean:.3g}, last {last:.3g} "
+        f"(planned in {dt * 1e3:.0f} ms; re-plan {dt_warm * 1e3:.0f} ms, "
+        f"cache {stats['hits']} hits / {stats['misses']} misses)"
+    )
+
+
+def _serve_lm(args) -> int:
+    """Serve ``--arch`` on one device: prefill, then greedy decoding."""
+    import torch
+
+    from ..configs import ARCHS, reduced
+    from ..models.model import check_device, init_cache, init_model
+    from ..serving.serve import make_serve_step
+
+    if args.mesh != "auto":
+        print(MESH_MESSAGE.format(mesh=args.mesh), file=sys.stderr)
+        return 2
+    cfg = ARCHS[args.arch]
+    if args.reduced:
+        cfg = reduced(cfg, periods=2)
+        cfg = dataclasses.replace(cfg, vocab_size=min(cfg.vocab_size, 32768))
+    device = torch.device(args.tape_device)
+    check_device(device)
+    max_len = args.prompt_len + args.new_tokens
+
+    params = init_model(torch.Generator(device).manual_seed(0), cfg, device=device)
+    if args.restore_from_tape:
+        _restore_from_tape(params, args.tape_policy, _device_context(args))
+    cache = init_cache(cfg, args.batch, max_len=max_len, device=device)
+    serve = make_serve_step(cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), device=device,
+                            generator=torch.Generator(device).manual_seed(1))
+    try:
+        for t in range(args.prompt_len - 1):  # teacher-forced prefill
+            _, _, cache = serve(params, cache, prompts[:, t : t + 1], t)
+        tok = prompts[:, -1:]
+        t0 = time.time()
+        outs = []
+        for t in range(args.new_tokens):
+            tok, _, cache = serve(params, cache, tok, args.prompt_len - 1 + t)
+            outs.append(tok)
+        first = torch.cat(outs, 1)[0].cpu()  # waits for the last step
+    except NotImplementedError as e:
+        print(f"{cfg.arch_id}: {e}", file=sys.stderr)
+        return 2
+    dt = time.time() - t0
+    print(f"{cfg.arch_id}: {args.batch}x{args.new_tokens} tokens in {dt:.2f}s "
+          f"({args.batch*args.new_tokens/dt:.0f} tok/s)")
+    print("first sequence:", first[:16].tolist(), "...")
+    return 0
 
 
 def _export_obs(obs, args) -> None:
@@ -503,23 +599,29 @@ def _serve_tape_fleet(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The launcher's flags: the reference launcher's tape flags, plus
-    ``--tape-device``; of the language-model flags only
-    ``--restore-from-tape``, which is refused (ROADMAP item A9)."""
+    """The reference launcher's flags, plus ``--tape-device``."""
+    from ..configs import ARCHS
     from ..serving.drives import MOUNT_SCHEDULERS
     from ..serving.queue import ADMISSIONS
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen2.5-3b", choices=sorted(ARCHS))
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--mesh", default="auto", choices=["auto", "pod", "multipod"],
+                    help="device mesh of the model: 'auto' is one device (the "
+                         "multi-device meshes are refused: ROADMAP item A9.6)")
     ap.add_argument("--restore-from-tape", action="store_true",
-                    help="plan a checkpoint restore before language-model serving "
-                         "(not in the port yet: refused)")
+                    help="simulate an LTSP-scheduled checkpoint restore first")
     ap.add_argument("--tape-policy", default="dp", choices=list_solvers())
     ap.add_argument("--tape-backend", default="cuda", choices=list(BACKENDS),
                     help="solver backend: 'cuda' (the CUDA kernels, default), "
                          "'torch' (their plain version) or 'python' (exact host DP)")
     ap.add_argument("--tape-device", default="cuda",
-                    help="torch device of the 'cuda' and 'torch' backends "
-                         "('cpu' runs the 'torch' backend without a card)")
+                    help="torch device of the model and of the 'cuda' and 'torch' "
+                         "backends ('cpu' runs both without a card)")
     ap.add_argument("--serve-tape-queue", action="store_true",
                     help="run the online tape-serving queue simulation "
                          "(admission-policy comparison)")
@@ -618,12 +720,11 @@ def main(argv=None) -> int:
     exit status."""
     args = build_parser().parse_args(argv)
 
-    if args.restore_from_tape or not (args.serve_tape_queue or args.serve_tape_fleet):
-        print(LM_MODE_MESSAGE, file=sys.stderr)
-        return 2
     if args.serve_tape_queue:
         return _serve_tape_queue(args)
-    return _serve_tape_fleet(args)
+    if args.serve_tape_fleet:
+        return _serve_tape_fleet(args)
+    return _serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,248 @@
+"""Shared model substrate: config, init helpers, primitives, attention, MoE init.
+
+The port's copy of the JAX package's ``models/common.py`` in PyTorch.
+Parameters are tensors drawn from an explicit :class:`torch.Generator` on an
+explicit device; every ``apply`` is a plain function of tensors.  The matrix
+products stay plain ``@``/``torch.einsum`` calls, as the reference leaves
+them to XLA: the language-model path has no hand-written kernel.
+
+Not in this slice: ``apply_moe``, ``softmax_cross_entropy`` and the
+``_perm_gather`` custom gradient (ROADMAP items A9.1 and A9.5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+#: the dtype names a config may carry, as torch dtypes
+DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "float32": torch.float32,
+    "float64": torch.float64,
+}
+
+
+# ---------------------------------------------------------------------------
+# configuration
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str  # dense | moe | hybrid | ssm | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0  # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    rope_theta: float = 500000.0
+    # --- MoE ---------------------------------------------------------------
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0
+    first_k_dense: int = 0  # leading dense layers (DeepSeek/Kimi style)
+    moe_every: int = 1  # MoE on layers with (idx % moe_every == moe_every-1)
+    dense_d_ff: int = 0  # FFN width of the leading dense layers
+    # --- MLA (DeepSeek-V2 / Kimi) -------------------------------------------
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # --- layer pattern (one period, stacked) --------------------------------
+    # entries: "attn" | "mamba" | "mlstm" | "slstm" | "xattn" (vision cross)
+    block_pattern: tuple[str, ...] = ("attn",)
+    # --- Mamba --------------------------------------------------------------
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_chunk: int = 256
+    # --- encoder-decoder (audio) / VLM stub frontends -----------------------
+    enc_layers: int = 0  # >0: enc-dec; num_layers counts decoder layers
+    num_vision_tokens: int = 0  # VLM: precomputed patch embeddings
+    num_enc_frames: int = 0  # audio: precomputed frame embeddings
+    # --- numerics / training -----------------------------------------------
+    # The fields below are the reference's; the serving path reads
+    # compute_dtype, param_dtype, tie_embeddings, logits_bf16_ce,
+    # attn_scores_f32 and attn_q_chunk.  The others steer the reference's
+    # compilation, sharding and training, and are kept so that a config is
+    # the reference's value for value.
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    remat: bool = True
+    scan_layers: bool = True
+    capacity_factor: float = 1.25
+    tie_embeddings: bool = False
+    remat_policy: str = "full"  # full | dots | none
+    decode_mla_absorb: bool = True  # absorbed MLA decode (compressed cache)
+    logits_bf16_ce: bool = False  # logits kept in the compute dtype
+    act_hints: bool = False  # sharding constraints on block boundaries
+    seq_parallel: bool = False  # shard sequence over "model" between blocks
+    moe_hints: bool = False  # constrain MoE dispatch buffers (EP placement)
+    attn_scores_f32: bool = True  # False: scores materialised in compute dtype
+    microbatches: int = 1  # gradient-accumulation microbatches per step
+    moe_gather_dispatch: bool = False  # permutation-gather MoE dispatch
+    attn_q_chunk: int = 0  # >0: chunked causal attention over KV prefixes
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.num_heads
+
+    @property
+    def n_periods(self) -> int:
+        assert self.layers_after_prologue % len(self.block_pattern) == 0, (
+            self.arch_id,
+            self.layers_after_prologue,
+            self.block_pattern,
+        )
+        return self.layers_after_prologue // len(self.block_pattern)
+
+    @property
+    def layers_after_prologue(self) -> int:
+        return self.num_layers - self.first_k_dense
+
+    def is_moe_layer(self, pos_in_pattern: int) -> bool:
+        """Static MoE placement within one period."""
+        if self.num_experts == 0:
+            return False
+        return pos_in_pattern % self.moe_every == self.moe_every - 1
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Supports the 500k-token long-context decode shape."""
+        return any(k in ("mamba", "mlstm", "slstm") for k in self.block_pattern)
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return DTYPES[self.compute_dtype]
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return DTYPES[self.param_dtype]
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None, *,
+               device) -> torch.Tensor:
+    """Normal draw scaled by ``fan_in ** -0.5`` (or ``scale``), in float32
+    and then cast, as the reference draws it."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else fan_in**-0.5
+    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype, *, device) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=device) * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+def rope_freqs(positions: torch.Tensor, dim: int, theta: float):
+    """positions [*, L] -> (cos, sin) [*, L, dim/2]."""
+    arange = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device)
+    inv = 1.0 / (theta ** (arange / dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [..., L, H, D] with (cos, sin) [..., L, D/2] (broadcast over heads).
+
+    Half-split rotation: the first and second halves of the head dimension
+    are the two coordinates of each rotated pair.
+    """
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def causal_attention(q, k, v, *, scale: float, causal: bool = True,
+                     q_offset: int | None = None, scores_f32: bool = True):
+    """Grouped-query attention.
+
+    q [B, Lq, Hq, D], k/v [B, Lk, Hkv, D(v)] with Hq % Hkv == 0.
+    ``q_offset``: position of q_i is ``q_offset + i`` (None means Lq == Lk
+    aligned).  Scores are float32 when ``scores_f32`` (the operands are
+    widened first, which is exact, so the products accumulate in float32 as
+    the reference's ``preferred_element_type`` asks), else the compute dtype.
+    Masked scores are -30000, not -inf, as in the reference.
+    """
+    B, Lq, Hq, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Lq, Hkv, G, D)
+    sdt = torch.float32 if scores_f32 else q.dtype
+    logits = torch.einsum("blhgd,bmhd->bhglm", qg.to(sdt), k.to(sdt))
+    logits = logits * torch.tensor(scale, dtype=sdt)  # the scale rounded to sdt first
+    if causal:
+        qpos = torch.arange(Lq, device=q.device)[:, None] + (q_offset or 0)
+        mask = qpos >= torch.arange(Lk, device=q.device)[None, :]
+        logits = logits.masked_fill(~mask, -30000.0)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhglm,bmhe->blhge", w.to(v.dtype), v)
+    return out.reshape(B, Lq, Hq, v.shape[-1])
+
+
+def chunked_causal_attention(q, k, v, *, scale: float, chunk: int,
+                             scores_f32: bool = True):
+    """Causal attention computed one query chunk at a time.
+
+    Chunk ``i`` attends only to the key prefix ``[: (i+1)*chunk]``, so
+    compute is triangular and the live score buffer is ``chunk x Lk``.
+    """
+    B, Lq, Hq, Dh = q.shape
+    Lk = k.shape[1]
+    assert Lq == Lk and Lq % chunk == 0, (Lq, Lk, chunk)
+    outs = []
+    for i in range(Lq // chunk):
+        hi = (i + 1) * chunk
+        outs.append(causal_attention(
+            q[:, i * chunk : hi], k[:, :hi], v[:, :hi], scale=scale, causal=True,
+            q_offset=i * chunk, scores_f32=scores_f32,
+        ))
+    return torch.cat(outs, dim=1)
+
+
+def swiglu(x, w_gate, w_in, w_out):
+    h = F.silu(x @ w_gate) * (x @ w_in)
+    return h @ w_out
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts: parameters only (apply_moe is ROADMAP item A9.1)
+# ---------------------------------------------------------------------------
+def init_moe(gen: torch.Generator, cfg: ModelConfig, *, device) -> dict:
+    E, D, F_ = cfg.num_experts, cfg.d_model, cfg.moe_d_ff or cfg.d_ff
+    p = {
+        "router": dense_init(gen, (D, E), torch.float32, device=device),  # router in f32
+        "w_gate": dense_init(gen, (E, D, F_), cfg.pdtype, device=device),
+        "w_in": dense_init(gen, (E, D, F_), cfg.pdtype, device=device),
+        "w_out": dense_init(gen, (E, F_, D), cfg.pdtype, scale=F_**-0.5, device=device),
+    }
+    if cfg.num_shared_experts:
+        Fs = F_ * cfg.num_shared_experts
+        p["shared"] = {
+            "w_gate": dense_init(gen, (D, Fs), cfg.pdtype, device=device),
+            "w_in": dense_init(gen, (D, Fs), cfg.pdtype, device=device),
+            "w_out": dense_init(gen, (Fs, D), cfg.pdtype, scale=Fs**-0.5, device=device),
+        }
+    return p

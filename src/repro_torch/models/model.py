@@ -1,0 +1,281 @@
+"""Model assembly: embeddings + stacked layer periods + head.
+
+The port's copy of the JAX package's ``models/model.py``.  The parameters
+are an :class:`torch.nn.Module` tree (:class:`ParamTree`) whose
+``named_parameters()``, with ``.`` read as ``::``, are the reference's
+pytree paths and whose shapes are its leaves: every period of the layer
+pattern is stacked on a leading ``n_periods`` axis (``periods.l0.mixer.wq``
+of Qwen2.5-3B is one ``[36, 2048, 2048]`` parameter) and the leading dense
+layers are an ``nn.ModuleList`` (``prologue.0...``).  So a checkpoint
+archived from the port has the reference's shard names and sizes, and its
+restore plans are the reference's.
+
+The stack runs as a Python loop over the period index, the counterpart of
+the reference's ``lax.scan`` (``scan_layers`` and ``remat`` choose how XLA
+compiles the same arithmetic; here there is one way).  The sharding hints
+(``act_hints``, ``seq_parallel``) have nothing to constrain on one device.
+``encode``/``warm_cross_cache`` and the MoE, MLA, Mamba, xLSTM and
+cross-attention apply paths are not in this slice (ROADMAP A9.1-A9.4).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from .blocks import (
+    MIXER_APPLY,
+    MIXER_INIT,
+    Ctx,
+    apply_ffn,
+    init_attn,
+    init_attn_cache,
+    init_ffn,
+    init_mamba_cache,
+    init_mla_cache,
+    init_mlstm_cache,
+    init_slstm_cache,
+    init_xattn_cache,
+    not_ported,
+)
+from .common import ModelConfig, embed_init, init_moe, rms_norm
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module tree: a dict becomes a submodule,
+    a list an ``nn.ModuleList``, a tensor a parameter (``requires_grad``
+    off: this slice serves).  Indexing by name, ``get``, ``in`` and
+    ``items`` read it as the dict it was built from."""
+
+    def __init__(self, tree: dict[str, Any]):
+        super().__init__()
+        for name, sub in tree.items():
+            if isinstance(sub, dict):
+                self.add_module(name, ParamTree(sub))
+            elif isinstance(sub, list):
+                self.add_module(name, nn.ModuleList(ParamTree(t) for t in sub))
+            else:
+                self.register_parameter(name, nn.Parameter(sub, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def get(self, name: str, default=None):
+        return self[name] if name in self else default
+
+    def items(self):
+        return [*self._parameters.items(), *self._modules.items()]
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts or :class:`ParamTree` s, as dicts."""
+    if isinstance(tree, (dict, ParamTree)):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _at(tree, i: int):
+    """Period ``i`` of a stacked tree: views, so a write reaches the stack."""
+    return _tree_map(lambda a: a[i], tree)
+
+
+def _stacked(make, n: int):
+    """``n`` draws of ``make()`` stacked on a leading axis (the reference's
+    ``jax.vmap`` over an init), each copied into place as it is drawn."""
+    first = make()
+    out = _tree_map(lambda a: a.new_empty((n, *a.shape)), first)
+    for i in range(n):
+        _tree_map(lambda o, a: o[i].copy_(a), out, first if i == 0 else make())
+    return out
+
+
+def _resolved_kind(cfg: ModelConfig, kind: str) -> str:
+    return "mla" if (kind == "attn" and cfg.use_mla) else kind
+
+
+def _layer_has_cross(cfg: ModelConfig) -> bool:
+    """Enc-dec decoders put a cross-attention sub-block in every layer."""
+    return cfg.enc_layers > 0
+
+
+def check_device(device) -> None:
+    """Raise unless ``device`` can be used: a CUDA device needs a card."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} requested but torch sees no CUDA device")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def _init_layer(gen, cfg: ModelConfig, kind: str, *, is_moe: bool, cross: bool, device,
+                d_ff: int | None = None) -> dict:
+    def ones():
+        return torch.ones((cfg.d_model,), dtype=cfg.pdtype, device=device)
+
+    p = {"ln1": ones(), "mixer": MIXER_INIT[_resolved_kind(cfg, kind)](gen, cfg, device=device)}
+    if cross and kind != "xattn":
+        p["lnx"] = ones()
+        p["xmixer"] = init_attn(gen, cfg, device=device)
+    if is_moe:
+        p["ln2"] = ones()
+        p["moe"] = init_moe(gen, cfg, device=device)
+    elif (d_ff or cfg.d_ff) > 0:
+        p["ln2"] = ones()
+        p["ffn"] = init_ffn(gen, cfg, d_ff=d_ff, device=device)
+    return p
+
+
+def _init_period(gen, cfg: ModelConfig, device) -> dict:
+    return {
+        f"l{i}": _init_layer(gen, cfg, kind, is_moe=cfg.is_moe_layer(i),
+                             cross=_layer_has_cross(cfg), device=device)
+        for i, kind in enumerate(cfg.block_pattern)
+    }
+
+
+def init_model(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> ParamTree:
+    """The model's parameters on ``device``, drawn from ``gen`` (a generator
+    on that device; ``device="meta"`` takes a CPU generator and allocates
+    nothing, which is enough for anything that reads only shapes)."""
+    check_device(device)
+    D, V = cfg.d_model, cfg.vocab_size
+    params: dict[str, Any] = {
+        "embed": embed_init(gen, (V, D), cfg.pdtype, device=device),
+        "final_norm": torch.ones((D,), dtype=cfg.pdtype, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embed_init(gen, (D, V), cfg.pdtype, device=device)
+    # prologue: leading dense layers outside the stack (DeepSeek/Kimi style)
+    if cfg.first_k_dense:
+        params["prologue"] = [
+            _init_layer(gen, cfg, "attn", is_moe=False, cross=_layer_has_cross(cfg),
+                        device=device, d_ff=cfg.dense_d_ff or cfg.d_ff)
+            for _ in range(cfg.first_k_dense)
+        ]
+    params["periods"] = _stacked(lambda: _init_period(gen, cfg, device), cfg.n_periods)
+    # encoder stack (enc-dec only): uniform self-attention layers
+    if cfg.enc_layers:
+        params["encoder"] = _stacked(
+            lambda: _init_layer(gen, cfg, "attn", is_moe=False, cross=False, device=device),
+            cfg.enc_layers)
+        params["enc_norm"] = torch.ones((D,), dtype=cfg.pdtype, device=device)
+    return ParamTree(params)
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+def _apply_layer(lp, x, cfg: ModelConfig, kind: str, ctx: Ctx, cache):
+    rk = _resolved_kind(cfg, kind)
+    y, new_cache = MIXER_APPLY[rk](lp["mixer"], rms_norm(x, lp["ln1"]), cfg, ctx,
+                                   cache=cache.get("mix") if cache else None)
+    x = x + y
+    new_cache = {"mix": new_cache} if new_cache is not None else {}
+    if "xmixer" in lp:
+        raise not_ported("xattn")
+    if "moe" in lp:
+        raise not_ported("moe")
+    if "ffn" in lp:
+        x = x + apply_ffn(lp["ffn"], rms_norm(x, lp["ln2"]), cfg)
+    return x, (new_cache or None)
+
+
+def _apply_period(pp, x, cfg: ModelConfig, ctx: Ctx, caches):
+    new_caches = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        c = caches[f"l{i}"] if caches is not None else None
+        x, nc = _apply_layer(pp[f"l{i}"], x, cfg, kind, ctx, c)
+        if nc is not None:
+            new_caches[f"l{i}"] = nc
+    return x, (new_caches or None)
+
+
+def _head(params, cfg: ModelConfig, x):
+    x = rms_norm(x, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head.to(x.dtype)
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            memory: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward -> (logits [B, L, V] f32, MoE aux loss).
+
+    The aux loss is the MoE load-balancing term, 0 while no MoE layer is
+    applied (ROADMAP A9.1)."""
+    B, L = tokens.shape
+    x = params["embed"][tokens].to(cfg.cdtype)
+    positions = torch.arange(L, device=tokens.device).expand(B, L)
+    ctx = Ctx(positions=positions, memory=memory, causal=True)
+    for lp in params.get("prologue", []):
+        x, _ = _apply_layer(lp, x, cfg, "attn", ctx, None)
+    for i in range(cfg.n_periods):
+        x, _ = _apply_period(_at(params["periods"], i), x, cfg, ctx, None)
+    logits = _head(params, cfg, x)
+    if not cfg.logits_bf16_ce:  # else kept in the compute dtype, as the reference keeps it
+        logits = logits.float()
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+# ---------------------------------------------------------------------------
+# decode (single token, cached)
+# ---------------------------------------------------------------------------
+def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                      cross_len: int, device) -> dict:
+    rk = _resolved_kind(cfg, kind)
+    c: dict[str, Any] = {}
+    if rk == "attn":
+        c["mix"] = init_attn_cache(cfg, batch, max_len, device=device)
+    elif rk == "mla":
+        c["mix"] = init_mla_cache(cfg, batch, max_len, device=device)
+    elif rk == "mamba":
+        c["mix"] = init_mamba_cache(cfg, batch, device=device)
+    elif rk == "mlstm":
+        c["mix"] = init_mlstm_cache(cfg, batch, device=device)
+    elif rk == "slstm":
+        c["mix"] = init_slstm_cache(cfg, batch, device=device)
+    elif rk == "xattn":
+        c["mix"] = init_xattn_cache(cfg, batch, cross_len, device=device)
+    if _layer_has_cross(cfg) and kind != "xattn":
+        c["cross"] = init_xattn_cache(cfg, batch, cross_len, device=device)
+    return c
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> dict:
+    """Decode cache: nested dicts of tensors, the period caches stacked to
+    match the stacked parameters, the prologue's a list."""
+    check_device(device)
+    cross_len = cfg.num_vision_tokens or cfg.num_enc_frames or 1
+
+    def one_period():
+        return {f"l{i}": _init_layer_cache(cfg, kind, batch, max_len, cross_len, device)
+                for i, kind in enumerate(cfg.block_pattern)}
+
+    cache: dict[str, Any] = {"periods": _stacked(one_period, cfg.n_periods)}
+    if cfg.first_k_dense:
+        cache["prologue"] = [_init_layer_cache(cfg, "attn", batch, max_len, cross_len, device)
+                             for _ in range(cfg.first_k_dense)]
+    return cache
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos, *,
+                memory: torch.Tensor | None = None):
+    """One decode step -> (logits [B, 1, V] f32, cache).
+
+    ``pos`` is the current position (an int, or a 0-d tensor read once on
+    the host).  The attention caches are written in place, at ``pos``
+    clamped into the cache as the reference's ``dynamic_update_slice``
+    clamps it, and the returned cache is ``cache`` itself.
+    """
+    pos = int(pos)
+    x = params["embed"][tokens].to(cfg.cdtype)
+    ctx = Ctx(pos=pos, memory=memory, causal=True)
+    for lp, lc in zip(params.get("prologue", []), cache.get("prologue", [])):
+        x, _ = _apply_layer(lp, x, cfg, "attn", ctx, lc)
+    for i in range(cfg.n_periods):
+        x, _ = _apply_period(_at(params["periods"], i), x, cfg, ctx, _at(cache["periods"], i))
+    return _head(params, cfg, x).float(), cache

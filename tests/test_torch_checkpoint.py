@@ -117,3 +117,79 @@ def test_restore_on_the_plain_device_backend_matches_reference_interpret():
     port_plans = plan_restore(port_lib, port_names, 3, policy="dp",
                               context=port_core.ExecutionContext(backend="torch", device="cpu"))
     assert plans(port_plans) == plans(ref_plans)
+
+
+# ---------------------------------------------------------------------------
+# hot tier: .npy leaves + manifest, read by either package
+# ---------------------------------------------------------------------------
+def port_model(model_params):
+    """The port's reduced qwen2.5-3b module holding ``model_params``."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import init_model, load_params
+
+    model = init_model(torch.Generator().manual_seed(0), reduced(ARCHS["qwen2.5-3b"], periods=1),
+                       device="cpu")
+    return load_params(model, model_params)
+
+
+def written(path) -> dict[str, bytes]:
+    return {p.name: p.read_bytes() for p in sorted(path.iterdir())}
+
+
+@pytest.mark.parametrize("kind", ["module", "numpy", "torch"])
+def test_hot_tier_writes_the_reference_bytes(kind, model_params, tmp_path):
+    """Same file names, same ``.npy`` bytes and the same manifest, for the
+    port's model and for nested containers (tuples, ``None``, scalars)."""
+    nested = nested_tree(np.random.default_rng(1))
+    nested["a"].pop(10)
+    trees = {"params": model_params, "extra": nested}
+    port_trees = {"params": port_model(model_params) if kind == "module" else
+                  (to_torch(model_params) if kind == "torch" else model_params),
+                  "extra": to_torch(nested) if kind == "torch" else nested}
+    ref_ckpt.save_checkpoint(tmp_path / "ref", 12, **trees)
+    port_ckpt.save_checkpoint(tmp_path / "port", 12, **port_trees)
+    assert written(tmp_path / "port") == written(tmp_path / "ref")
+    assert len(written(tmp_path / "ref")) == len(jax.tree.leaves(trees)) + 1
+
+
+@pytest.mark.parametrize("template", ["module", "tree"])
+def test_hot_tier_reference_saves_port_loads(template, model_params, tmp_path):
+    ref_ckpt.save_checkpoint(tmp_path, 7, params=model_params)
+    if template == "module":
+        model = port_model(jax.tree.map(np.zeros_like, model_params))
+        step, out = port_ckpt.load_checkpoint(tmp_path, params=model)
+        assert out["params"] is model
+    else:
+        step, out = port_ckpt.load_checkpoint(tmp_path, params=model_params)
+    assert step == 7
+    got = dict(port_ckpt.named_leaves(out["params"]))
+    want = dict(port_ckpt.named_leaves(model_params))
+    assert list(got) == list(want)
+    for name, arr in want.items():
+        leaf = got[name]
+        leaf = leaf.detach().numpy() if isinstance(leaf, torch.Tensor) else leaf
+        assert leaf.dtype == arr.dtype and np.array_equal(leaf, arr), name
+
+
+def test_hot_tier_port_saves_reference_loads(model_params, tmp_path):
+    nested = nested_tree(np.random.default_rng(2))
+    nested["a"].pop(10)
+    port_ckpt.save_checkpoint(tmp_path, 9, params=port_model(model_params), extra=nested)
+    step, out = ref_ckpt.load_checkpoint(tmp_path, params=model_params, extra=nested)
+    assert step == 9
+    for tree, template in ((out["params"], model_params), (out["extra"], nested)):
+        assert jax.tree.structure(tree) == jax.tree.structure(template)
+        for got, want in zip(jax.tree.leaves(tree), jax.tree.leaves(template)):
+            want = np.asarray(want)
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_hot_tier_refuses_a_module_of_another_shape(model_params, tmp_path):
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import init_model
+
+    ref_ckpt.save_checkpoint(tmp_path, 1, params=model_params)
+    other = init_model(torch.Generator().manual_seed(0), reduced(ARCHS["granite-8b"], periods=1),
+                       device="cpu")
+    with pytest.raises(ValueError, match=r"missing \['lm_head'\]"):
+        port_ckpt.load_checkpoint(tmp_path, params=other)

@@ -11,7 +11,9 @@ the fault example's seeded solver fault targets the run's backend, so on a
 device backend its fail-stop row degrades through ``torch -> python`` where
 the reference's ``python`` run has no tier to fall to.  With a card present,
 each example's default run (the CUDA kernels) must print the numbers of its
-own ``python`` run.
+own ``python`` run.  The batched-serving example draws other weights than its
+twin (JAX and torch generators differ), so it is held to its twin's lines
+with the numbers taken out.
 """
 
 import os
@@ -35,6 +37,7 @@ EXAMPLES = {
     "fault_serving": ["--requests", "60"],
     "fleet_serving": ["--requests", "120"],
     "observability": ["--requests", "120"],
+    "tape_restore": [],
 }
 BACKENDS = {"python": ["--backend", "python"], "torch": ["--backend", "torch", "--device", "cpu"]}
 #: the rows a device backend prints differently from ``python``, by design
@@ -88,6 +91,37 @@ def test_example_defaults_to_the_card(name, tmp_path):
         return
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, str(script), *EXAMPLES[name]], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode != 0
+    assert "torch sees no CUDA device" in proc.stderr
+
+
+SERVE_ARGS = ["--batch", "2", "--prompt-len", "6", "--new-tokens", "8"]
+
+
+def shape_of(out: str) -> list[str]:
+    """The printed lines with every number taken out."""
+    return [NUM.sub("#", line) for line in out.splitlines()]
+
+
+def test_serve_batched_prints_its_reference_twins_lines():
+    ref = run(ROOT / "examples" / "serve_batched.py", SERVE_ARGS)
+    port = run(ROOT / "examples" / "torch" / "serve_batched.py", [*SERVE_ARGS, "--device", "cpu"])
+    assert shape_of(port.replace(" device=cpu", "")) == shape_of(ref)
+    assert re.search(r"^  seq1: \[(\d+, ){8}\d+\] \.\.\.$", port, re.M)
+
+
+def test_serve_batched_defaults_to_the_card():
+    """Without ``--device`` the model serves on the card; with no card the
+    example stops with the device error."""
+    import torch
+
+    script = ROOT / "examples" / "torch" / "serve_batched.py"
+    if torch.cuda.is_available():
+        assert "device=cuda" in run(script, SERVE_ARGS)
+        return
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, str(script), *SERVE_ARGS], capture_output=True,
                           text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode != 0
     assert "torch sees no CUDA device" in proc.stderr

@@ -31,7 +31,7 @@ def test_every_module_imports_with_jax_blocked():
                           env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, leaked = proc.stdout.split(maxsplit=1)
-    assert int(count) >= 20 + len(SERVING_SLICE) - 1
+    assert int(count) >= 20 + len(SERVING_SLICE) + len(LM_SLICE) - 1
     assert leaked.strip() == "[]"
 
 
@@ -44,9 +44,15 @@ SERVING_SLICE = [
     "repro_torch.fleet", "repro_torch.fleet.placement", "repro_torch.fleet.report",
     "repro_torch.fleet.server", "repro_torch.launch", "repro_torch.launch.serve",
 ]
+#: the language-model serving path and the configs it serves
+LM_SLICE = [
+    "repro_torch.models", "repro_torch.models.common", "repro_torch.models.blocks",
+    "repro_torch.models.model", "repro_torch.models.convert", "repro_torch.configs",
+    "repro_torch.configs.qwen2_5_3b", "repro_torch.serving.serve",
+]
 
 
-@pytest.mark.parametrize("module", SERVING_SLICE)
+@pytest.mark.parametrize("module", SERVING_SLICE + LM_SLICE)
 def test_serving_slice_imports_with_jax_blocked(module):
     code = (
         "import importlib, sys\n"

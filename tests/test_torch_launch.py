@@ -4,9 +4,12 @@
 must print the reference launcher's tables on the same seeds: on ``python``
 against the reference's ``python``, and on ``torch --tape-device cpu`` (the
 kernels' plain version) against the reference's ``pallas-interpret``, with
-the wall-time column of each row dropped.  The port's launcher runs on the
-card by default, never falls back to another backend, and refuses the
-language-model modes it does not have yet.
+the wall-time column of each row dropped.  Its language-model mode serves
+on the CPU with ``--tape-device cpu`` and prints the reference's two lines;
+its ``--restore-from-tape`` line is the reference's but for the times, and at
+full width the archive raises the reference's ``tape ... full``.  The port's
+launcher runs on the card by default, never falls back to another backend,
+and refuses by name the meshes and mixers it does not have yet.
 """
 
 import os
@@ -150,11 +153,92 @@ def test_int32_guard_failure_raises_without_fallback(capsys):
         [row.split(",")[cells] for row in table(python_out)][1:]
 
 
-@pytest.mark.parametrize("args", [[], ["--restore-from-tape"],
-                                  ["--restore-from-tape", "--serve-tape-queue"]])
+@pytest.mark.parametrize("args", [["--mesh", "pod"], ["--mesh", "multipod"],
+                                  ["--arch", "jamba-v0.1-52b", "--reduced", "--tape-device", "cpu",
+                                   "--tape-backend", "python", "--batch", "1"]])
 def test_lm_modes_exit_nonzero(args, capsys):
     assert port_serve.main(args) == 2
     assert "ROADMAP item A9" in capsys.readouterr().err
+
+
+LM_ARGS = ["--reduced", "--batch", "2", "--prompt-len", "4", "--new-tokens", "4"]
+RESTORE = re.compile(r"^tape restore \[dp/[\w-]+\]: .* "
+                     r"\(planned in \d+ ms; re-plan \d+ ms, cache .*\)$", re.M)
+
+
+def lm_lines(out: str) -> tuple[str, str]:
+    """The two lines LM serving prints: throughput, then the first sequence."""
+    served = re.search(r"^[\w.-]+: \d+x\d+ tokens in [\d.]+s \(\d+ tok/s\)$", out, re.M)
+    first = re.search(r"^first sequence: \[(\d+(, )?)+\] \.\.\.$", out, re.M)
+    assert served and first, out
+    return served.group(0), first.group(0)
+
+
+def restore_line(out: str) -> str:
+    """The restore line with its two times dropped."""
+    m = RESTORE.search(out)
+    assert m, out
+    return re.sub(r" \(planned in \d+ ms; re-plan \d+ ms, ", " (", m.group(0))
+
+
+def test_lm_mode_serves_on_the_cpu(capsys):
+    code, out = run_port(["--arch", "granite-8b", *LM_ARGS, "--tape-device", "cpu"], capsys)
+    assert code == 0
+    served, first = lm_lines(out)
+    assert served.startswith("granite-8b: 2x4 tokens in ")
+    assert len(re.findall(r"\d+", first.split(":")[1])) == 4
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen2.5-3b"])
+def test_restore_line_matches_reference_launcher(arch, capsys, monkeypatch):
+    # the reference's LM mode returns from main() instead of raising SystemExit
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch, *LM_ARGS, "--restore-from-tape",
+                                      "--tape-backend", "python"])
+    ref_serve.main()
+    ref_out = capsys.readouterr().out
+    code, out = run_port(["--arch", arch, *LM_ARGS, "--restore-from-tape", "--tape-backend",
+                          "python", "--tape-device", "cpu"], capsys)
+    assert code == 0
+    assert restore_line(out) == restore_line(ref_out)
+    assert "cache 1 hits / " in restore_line(out)
+    lm_lines(out)
+    # the plain device tables plan the same restore
+    code, out_torch = run_port(["--arch", arch, *LM_ARGS, "--restore-from-tape",
+                                "--tape-backend", "torch", "--tape-device", "cpu"], capsys)
+    assert code == 0
+    assert restore_line(out_torch) == restore_line(out).replace("[dp/python]", "[dp/torch]")
+
+
+def test_full_width_restore_raises_the_references_tape_full():
+    """Qwen2.5-3B's 311 M-element embedding shard does not fit the launcher's
+    4 MB cartridges: the reference's archive raises, and so does the port's
+    (the trees carry shapes only: ``meta`` tensors, broadcast numpy views)."""
+    import jax
+    import numpy as np
+
+    from repro.configs import ARCHS as REF_ARCHS
+    from repro.models.model import init_model as ref_init_model
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_model
+
+    shapes = jax.eval_shape(lambda k: ref_init_model(k, REF_ARCHS["qwen2.5-3b"]),
+                            jax.random.PRNGKey(0))
+    ref_params = jax.tree.map(lambda s: np.broadcast_to(np.zeros((), s.dtype), s.shape), shapes)
+    with pytest.raises(ValueError) as ref_err:
+        ref_serve._restore_from_tape(ref_params, "dp", "python")
+    params = init_model(torch.Generator(), ARCHS["qwen2.5-3b"], device="meta")
+    with pytest.raises(ValueError) as err:
+        port_serve._restore_from_tape(params, "dp", dict(backend="python", device="cpu",
+                                                         numeric_policy="f64"))
+    assert str(err.value) == str(ref_err.value)
+    assert re.fullmatch(r"tape \S+ full", str(err.value))
+
+
+def test_lm_mode_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the model serves on it")
+    with pytest.raises(RuntimeError, match="sees no CUDA device"):
+        port_serve.main(LM_ARGS)
 
 
 def test_module_entry_point_runs_without_jax():
