@@ -25,8 +25,13 @@ timed); 9b the restore of its checkpoint from tape, planned under ``dp`` and
 ``simpledp`` through the CUDA kernels and held equal to ``python``, the
 launcher's ``--restore-from-tape`` on ``cuda`` and ``python`` and its LM mode
 on the card (its default command, and every dense decoder); 9c the
-``tape_restore`` and ``serve_batched`` examples.  Every phase fails the run
-on any mismatch.
+``tape_restore`` and ``serve_batched`` examples.  Phase 10 trains: 10a
+Qwen2.5-3B at full width through the training launcher's loop, 20 steps,
+timed and profiled; 10b the reduced dense decoders' loss and gradients on
+the card against the CPU, and 4 microbatches against the whole batch; 10c
+the training example's corpus plan through the CUDA kernels against
+``python``, the example with its defaults, and the launcher checkpointed
+and resumed.  Every phase fails the run on any mismatch.
 
 Usage, from the root of a checkout, on a machine with a CUDA card::
 
@@ -50,9 +55,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 #: H100 SXM peaks used for the bound (NVIDIA data sheet, dense, non-tensor
-#: for the table types): HBM3 bandwidth and the per-type operation rates.
+#: for the table types, tensor cores for bf16): HBM3 bandwidth and the
+#: per-type operation rates.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12, "int32": 33.5e12}
+PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12, "int32": 33.5e12,
+                  "bfloat16": 989e12}
 #: operations per (cell, candidate, s) of the fold: sum of the two table
 #: reads, movement multiply and add, U-turn add, multiply and add, compare.
 OPS_PER_CANDIDATE = 7
@@ -220,6 +227,21 @@ LM_ARCHIVE = dict(capacity_per_tape=4 * 10**9, u_turn=20_000_000)
 LM_LAUNCHER_ARCHS = ("qwen2.5-3b", "granite-8b")
 LM_LAUNCHER_SERVES = {"default": [], "yi-34b": ["--arch", "yi-34b", "--reduced"],
                       "deepseek-coder-33b": ["--arch", "deepseek-coder-33b", "--reduced"]}
+#: phase 10a: the training launcher's loop at full width, steps 5-20 timed,
+#: then two more steps under the profiler
+TRAIN_FULL = ["--arch", "qwen2.5-3b", "--steps", "20", "--batch", "4", "--seq", "512",
+              "--ckpt-every", "1000"]
+TRAIN_TIMED_FROM = 5
+#: phase 10b: the dense decoders, reduced, float32 on the card against the
+#: CPU; gradients within TRAIN_GRAD_REL of each leaf's largest element, and
+#: the reference's own bound between 4 microbatches and the whole batch
+#: (tests/test_distributed.py)
+TRAIN_ARCHS = ("deepseek-coder-33b", "granite-8b", "qwen2.5-3b", "yi-34b")
+TRAIN_GRAD_REL = 1e-4
+TRAIN_MICRO_BOUND = 2e-5
+#: phase 10c: the launcher reduced, checkpointed every 10 steps, then resumed
+TRAIN_RESUME = (["--reduced", "--steps", "30", "--ckpt-every", "10"],
+                ["--reduced", "--steps", "40", "--ckpt-every", "10", "--resume"])
 
 
 def serving_exactness(dev: str) -> None:
@@ -1044,7 +1066,6 @@ def lm_serving(dev: str) -> tuple:
     # where a decode step's time goes: four steps under the profiler, its
     # kernel events (device time) apart from its operator events (host)
     try:
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile as torch_profile
 
         torch.cuda.synchronize()
@@ -1054,22 +1075,14 @@ def lm_serving(dev: str) -> tuple:
                 tok, _, cache = serve(params, cache, tok, P + N - 1)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kernels, n_ops = [], 0
-        for evt in prof.key_averages():
-            if evt.device_type == DeviceType.CUDA:
-                dev_us = getattr(evt, "self_device_time_total", None)
-                if dev_us is None:
-                    dev_us = evt.self_cuda_time_total
-                kernels.append((dev_us, evt.key, evt.count))
-            elif evt.key.startswith("aten::"):
-                n_ops += evt.count
-        total = sum(k[0] for k in kernels)
+        split = profile_split(prof, 4)
+        total = split["kernel_ms"]
         log(f"phase 9a: profiler, 4 decode steps: {1e3 * wall / 4:.3f} ms wall and "
-            f"{total / 4e3:.3f} ms of kernel time a step ({100 * total / 1e6 / wall:.1f}% "
-            f"busy), {sum(k[2] for k in kernels) / 4:.0f} kernels and {n_ops / 4:.0f} aten "
+            f"{total:.3f} ms of kernel time a step ({100 * total / 250 / wall:.1f}% "
+            f"busy), {split['kernels']:.0f} kernels and {split['ops']:.0f} aten "
             f"operators a step")
-        for dev_us, key, count in sorted(kernels, reverse=True)[:8]:
-            log(f"  {100 * dev_us / max(total, 1):5.1f}% {dev_us / 4e3:8.3f} ms/step "
+        for dev_us, key, count in split["by_kernel"][:8]:
+            log(f"  {100 * dev_us / 4e3 / max(total, 1e-9):5.1f}% {dev_us / 4e3:8.3f} ms/step "
                 f"x{count // 4}: {key[:100]}")
     except RuntimeError as e:  # the profiler is not needed for any check
         log(f"phase 9a: profiler not measured ({e})")
@@ -1221,6 +1234,302 @@ def lm_processes() -> None:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+def profile_split(prof, steps: int) -> dict:
+    """Kernel time and counts a step from a ``torch.profiler`` run: kernel
+    events (device time) apart from operator events (host), the device time
+    of each operator's own kernels, and that of the kernels launched inside
+    the ``adamw_update`` range."""
+    from torch.autograd import DeviceType
+
+    def dev_us(evt, total: bool = False):
+        names = ("device_time_total", "cuda_time_total") if total else \
+            ("self_device_time_total", "self_cuda_time_total")
+        for name in names:
+            if hasattr(evt, name):
+                return getattr(evt, name)
+        return 0.0
+
+    kernels, ops, n_ops, adamw = [], [], 0, 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            if evt.key != "adamw_update":  # the range's mark on the device, not a kernel
+                kernels.append((dev_us(evt), evt.key, evt.count))
+        elif evt.key.startswith("aten::"):
+            n_ops += evt.count
+            ops.append((dev_us(evt), evt.key, evt.count, dev_us(evt, total=True)))
+        elif evt.key == "adamw_update":
+            adamw = dev_us(evt, total=True)
+    return {"kernel_ms": sum(k[0] for k in kernels) / 1e3 / steps,  # per step
+            # (self device us, name, count[, device us with the operators it calls])
+            "kernels": sum(k[2] for k in kernels) / steps, "ops": n_ops / steps,
+            "by_kernel": sorted(kernels, reverse=True), "by_op": sorted(ops, reverse=True),
+            "adamw_ms": adamw / 1e3 / steps}
+
+
+def train_step_bound_ms(cfg, n_params: int, batch: int, seq: int) -> tuple[float, str, dict]:
+    """The least time a remat-``full`` train step of a dense decoder could
+    take on the card: its products (forward, the periods' forward again,
+    backward twice the forward), the projections and head in bf16 at the
+    tensor cores' peak, the attention scores in float32 off them (both
+    L x L products, as the masked score matrix is computed whole), against
+    the parameters, ``m`` and ``v`` read and written once."""
+    D, dh, L = cfg.d_model, cfg.head_dim, seq
+    layer = D * dh * (cfg.num_heads * 2 + cfg.num_kv_heads * 2) + 3 * D * cfg.d_ff
+    periods = 2 * batch * L * layer * cfg.num_layers
+    head = 2 * batch * L * D * cfg.vocab_size
+    attn = 4 * batch * cfg.num_heads * L * L * dh * cfg.num_layers
+    flops = {"bf16": 3 * (periods + head) + periods, "float32": 4 * attn,
+             "bytes": 6 * 4 * n_params}
+    ops_ms = 1e3 * (flops["bf16"] / PEAK_OPS_PER_S["bfloat16"] +
+                    flops["float32"] / PEAK_OPS_PER_S["float32"])
+    bytes_ms = 1e3 * flops["bytes"] / HBM_BYTES_PER_S
+    return max(ops_ms, bytes_ms), "operations" if ops_ms > bytes_ms else "bytes", flops
+
+
+def lm_training(dev: str) -> None:
+    """Phase 10a: Qwen2.5-3B trained at full width through the launcher's
+    loop (``launch.train.train``), 20 steps at batch 4 x 512, no checkpoint.
+    Every loss and gradient norm must be finite, the last loss below the
+    first, every parameter leaf moved and the optimizer at step 20; then two
+    more steps run under the profiler."""
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import init_model
+    from repro_torch.training import OptConfig, make_train_step
+
+    work = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    args = launch_train.build_parser().parse_args([*TRAIN_FULL, "--device", dev, "--ckpt-dir",
+                                                   str(work / "full")])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = launch_train.train(args)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params, opt, hist = run["cfg"], run["params"], run["opt_state"], run["history"]
+    n_params = sum(p.numel() for p in params.parameters())
+    losses = [h["loss"] for h in hist]
+    finite = all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist)
+    if not finite or len(hist) != args.steps or not losses[-1] < losses[0]:
+        raise SystemExit(f"phase 10a FAILED: losses {losses}, grad norms "
+                         f"{[h['grad_norm'] for h in hist]}")
+    if int(opt["step"]) != args.steps or (work / "full").exists():
+        raise SystemExit(f"phase 10a FAILED: optimizer at step {int(opt['step'])}, or a "
+                         f"checkpoint was written")
+    fresh = init_model(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    still = [name for (name, a), b in zip(params.named_parameters(), fresh.parameters())
+             if torch.equal(a, b)]
+    del fresh
+    if still:
+        raise SystemExit(f"phase 10a FAILED: parameter leaves that did not move: {still}")
+    secs = [h["seconds"] for h in hist[TRAIN_TIMED_FROM - 1:]]
+    step_s = statistics.median(secs)
+    tokens = args.batch * args.seq
+    bound, bound_by, flops = train_step_bound_ms(cfg, n_params, args.batch, args.seq)
+    log(f"phase 10a: {cfg.arch_id} trained at full width ({n_params} parameters, not cut), "
+        f"{args.steps} steps at batch {args.batch} x {args.seq} in {wall:.3f} s with the "
+        f"initialisation; loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad norm "
+        f"{hist[0]['grad_norm']:.3f} -> {hist[-1]['grad_norm']:.3f}, every leaf moved, "
+        f"optimizer at step {int(opt['step'])}")
+    log(f"phase 10a: steps {TRAIN_TIMED_FROM}-{args.steps}: median {1e3 * step_s:.3f} ms a step "
+        f"(min {1e3 * min(secs):.3f}, max {1e3 * max(secs):.3f}), {tokens / step_s:.1f} "
+        f"tokens/s; first step {1e3 * hist[0]['seconds']:.3f} ms; peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    log(f"phase 10a: bound of a step {bound:.3f} ms ({bound_by}: {flops['bf16']:.4g} FLOP of "
+        f"bf16 products, {flops['float32']:.4g} of float32 attention products; parameters, m "
+        f"and v read and written once, {flops['bytes']:.4g} bytes): the step at "
+        f"{1e3 * step_s / bound:.2f}x its bound")
+
+    # where a step's time goes: two more steps under the profiler
+    try:
+        step = make_train_step(cfg, OptConfig(learning_rate=args.lr, warmup_steps=20,
+                                              total_steps=args.steps + 2))
+        rng = np.random.default_rng(1)
+        batches = [{"tokens": torch.from_numpy(np.minimum(
+            rng.zipf(1.2, size=(args.batch, args.seq)), cfg.vocab_size - 1).astype(np.int32)
+        ).to(dev)} for _ in range(2)]
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for batch in batches:
+                step(params, opt, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        split = profile_split(prof, 2)
+        per, kern = 1e3 * wall / 2, max(split["kernel_ms"], 1e-9)
+        log(f"phase 10a: profiler, 2 steps: {per:.3f} ms wall and {split['kernel_ms']:.3f} ms "
+            f"of kernel time a step ({100 * split['kernel_ms'] / per:.1f}% busy), "
+            f"{split['kernels']:.0f} kernels and {split['ops']:.0f} aten operators a step; "
+            f"adamw_update {split['adamw_ms']:.3f} ms of kernel time a step "
+            f"({100 * split['adamw_ms'] / kern:.1f}%)")
+        names = {"aten::mm": "products", "aten::bmm": "attention products (float32)",
+                 "aten::copy_": "casts: float32 -> bf16 weights, bf16 -> float32 gradients",
+                 "aten::stack": "unbind backward: each leaf's period gradients stacked",
+                 "aten::select_backward": "select backward: no period is selected, only the "
+                                          "label pick's [..., 0]"}
+        top = split["by_op"][:12]
+        named = [row for row in split["by_op"][12:] if row[1] in names]
+        for us, key, count, incl in top + named:
+            log(f"  {100 * us / 2e3 / kern:5.1f}% {us / 2e3:9.3f} ms/step "
+                f"x{count // 2}: {key} {('(' + names[key] + ')') if key in names else ''}"
+                f"{f'; {incl / 2e3:.3f} ms/step with the operators it calls' if incl > us else ''}")
+        for key in names:
+            if not any(row[1] == key for row in split["by_op"]):
+                log(f"  0 calls: {key} ({names[key]})")
+        for us, key, count in split["by_kernel"][:10]:
+            log(f"  kernel {100 * us / 2e3 / kern:5.1f}% "
+                f"{us / 2e3:9.3f} ms/step x{count // 2}: {key[:110]}")
+    except RuntimeError as e:  # the profiler is not needed for any check
+        log(f"phase 10a: profiler not measured ({e})")
+    del params, opt, run
+    torch.cuda.empty_cache()
+
+
+def reduced_training(dev: str) -> None:
+    """Phase 10b: the dense decoders, reduced, in float32: one train step's
+    loss and every gradient on the card against the CPU port, and one step
+    with 4 microbatches against one with the whole batch."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed.checkpoint import named_leaves
+    from repro_torch.training import OptConfig, init_train_state, loss_fn, make_train_step
+
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(reduced(ARCHS[arch]), compute_dtype="float32")
+        cpu, _ = init_train_state(torch.Generator().manual_seed(0), cfg, device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        tokens = torch.from_numpy(np.random.default_rng(11).integers(
+            0, cfg.vocab_size, (8, 16)).astype(np.int32))
+        grads, totals = {}, {}
+        for name, model, toks in (("cpu", cpu, tokens), ("cuda", card, tokens.to(dev))):
+            total, _ = loss_fn(model, cfg, {"tokens": toks})
+            grads[name] = torch.autograd.grad(total, [p for _, p in named_leaves(model)])
+            totals[name] = float(total.detach())
+        rel = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                  for g, w in zip(grads["cuda"], grads["cpu"]))
+        loss_rel = abs(totals["cuda"] - totals["cpu"]) / abs(totals["cpu"])
+        if not (rel <= TRAIN_GRAD_REL and loss_rel <= 1e-5):
+            raise SystemExit(f"phase 10b FAILED: {arch}: cuda gradients rel {rel}, loss rel "
+                             f"{loss_rel} against the CPU")
+        # the reference's microbatching test, on the card
+        mcfg = dataclasses.replace(reduced(ARCHS[arch], periods=1), vocab_size=64, remat=False,
+                                   compute_dtype="float32")
+        mtok = torch.from_numpy(np.random.default_rng(1).integers(
+            0, 64, (8, 16)).astype(np.int32)).to(dev)
+        after = []
+        for k in (1, 4):
+            params, opt = init_train_state(torch.Generator(dev).manual_seed(0), mcfg, device=dev)
+            make_train_step(mcfg, OptConfig(warmup_steps=1, total_steps=10), microbatches=k)(
+                params, opt, {"tokens": mtok})
+            after.append(params)
+        micro = max(float((a - b).detach().abs().max())
+                    for a, b in zip(after[0].parameters(), after[1].parameters()))
+        if not micro < TRAIN_MICRO_BOUND:
+            raise SystemExit(f"phase 10b FAILED: {arch}: 4 microbatches != 1 on the card, "
+                             f"max |dp| {micro}")
+        log(f"phase 10b: {arch} reduced, float32: loss rel {loss_rel:.3e}, gradients within "
+            f"{rel:.3e} of each leaf's largest element of the CPU's (held at {TRAIN_GRAD_REL}); "
+            f"4 microbatches vs 1: max |dp| {micro:.3e} < {TRAIN_MICRO_BOUND}")
+    torch.cuda.empty_cache()
+
+
+def training_paths(dev: str) -> dict:
+    """Phase 10c: the training example's corpus plan on the card == python
+    (its launches are this path's), the example with its defaults and with
+    ``--backend python`` as processes, and the launcher reduced,
+    checkpointed, then resumed.  Returns the launches of the plan."""
+    import importlib.util
+    import os
+    import re
+    import shutil
+
+    from repro_torch.core import ExecutionContext
+    from repro_torch.kernels.ltsp_dp import ltsp_dp
+    from repro_torch.launch import train as launch_train
+
+    work = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    script = ROOT / "examples" / "torch" / "train_e2e.py"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {}
+    try:
+        for backend, extra in (("cuda", []), ("python", ["--backend", "python"])):
+            cwd = work / f"example-{backend}"
+            cwd.mkdir(parents=True)
+            procs[backend] = subprocess.Popen(
+                [sys.executable, str(script), "--ckpt-dir", str(cwd / "ckpt"), *extra], cwd=cwd,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        spec = importlib.util.spec_from_file_location("train_e2e", script)
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        streams = {}
+        for backend in ("python", "cuda"):
+            ctx = ExecutionContext(backend=backend, device=dev, numeric_policy="f64")
+            lib, shards = example.build_corpus_on_tape(12, 8 * 128 * 16, 512, context=ctx)
+            ltsp_dp.reset_launches()
+            streams[backend] = [(name, t) for name, _, t in example.scheduled_shard_stream(lib,
+                                                                                        shards)]
+            launches = dict(ltsp_dp.LAUNCHES)
+        if streams["cuda"] != streams["python"]:
+            raise SystemExit("phase 10c FAILED: the corpus plan on cuda != python")
+        if launches["far_fold_kernel"] + launches["near_fold_kernel"] == 0 or \
+                launches["traceback_kernel"] == 0:
+            raise SystemExit(f"phase 10c FAILED: the corpus plan launched {launches}")
+        log(f"phase 10c: corpus plan (simpledp, {len(streams['cuda'])} shards) on cuda == "
+            f"python, first shard at t={streams['cuda'][0][1]:,}, launches {launches}")
+
+        runs = []
+        for argv in TRAIN_RESUME:
+            args = launch_train.build_parser().parse_args(
+                [*argv, "--device", dev, "--ckpt-dir", str(work / "launcher")])
+            runs.append(launch_train.train(args))
+        first, second = runs
+        if second["start"] != 30 or len(second["history"]) != 10 or \
+                int(second["opt_state"]["step"]) != 40:
+            raise SystemExit(f"phase 10c FAILED: the launcher resumed at {second['start']} "
+                             f"and ran {len(second['history'])} steps")
+        log(f"phase 10c: launcher --reduced: 30 steps, checkpoints every 10, then --resume "
+            f"--steps 40 resumed from step {second['start']}: loss "
+            f"{first['history'][0]['loss']:.4f} -> {second['history'][-1]['loss']:.4f}")
+        del runs, first, second
+
+        printed = {}
+        for backend, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise SystemExit(f"phase 10c FAILED: train_e2e on {backend} exited "
+                                 f"{proc.returncode}:\n{err[-3000:]}")
+            printed[backend] = out.splitlines()
+        cuda = printed["cuda"]
+        preempt = [line for line in cuda if re.match(r"step \d+: restored from checkpoint", line)]
+        if cuda[0] != printed["python"][0] or preempt != ["step 60: restored from checkpoint, "
+                                                          "continuing"] or \
+                not cuda[-1].endswith("loss decreased: True"):
+            raise SystemExit("phase 10c FAILED: example train_e2e:\n" + "\n".join(cuda))
+        log(f"phase 10c: example train_e2e (defaults, cuda): {cuda[0]} (== python); "
+            f"{preempt[0]}; {cuda[-1]}")
+        shutil.rmtree(work, ignore_errors=True)
+        return launches
+    finally:  # no process outlives the phase, whatever failed
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
 
 def main() -> int:
     import torch
@@ -1670,6 +1979,17 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_processes()
     phases["9b/9c launcher and examples"] = time.perf_counter() - t0
+
+    # ---- phase 10: training ---------------------------------------------------
+    t0 = time.perf_counter()
+    lm_training(dev)
+    phases["10a Qwen2.5-3B trained at full width"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reduced_training(dev)
+    phases["10b reduced decoders, cuda vs cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_launches["10c corpus plan"] = training_paths(dev)
+    phases["10c example and launcher"] = time.perf_counter() - t0
 
     # the kernels line counts the launches of every path, each path's counts
     # set to 0 just before it and read just after

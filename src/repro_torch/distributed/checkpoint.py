@@ -145,21 +145,32 @@ def save_checkpoint(path: str | pathlib.Path, step: int, **trees: Any) -> None:
 
 def _unflatten(template, arrays):
     """``template``'s containers with its leaves taken from ``arrays`` in
-    pytree order (dicts come back with their keys sorted, as JAX's do)."""
+    pytree order (dicts come back with their keys sorted, as JAX's do).  A
+    tensor leaf of the template comes back as a tensor on its device, of its
+    shape and dtype (or the load refuses); any other leaf as the array."""
     if template is None:
         return None
     if isinstance(template, dict):
         return {k: _unflatten(template[k], arrays) for k in sorted(template)}
     if isinstance(template, (list, tuple)):
         return type(template)(_unflatten(t, arrays) for t in template)
-    return next(arrays)
+    arr = next(arrays)
+    if not isinstance(template, torch.Tensor):
+        return arr
+    leaf = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+    if leaf.shape != template.shape or leaf.dtype != template.dtype:
+        raise ValueError(f"checkpoint leaf {tuple(leaf.shape)} {leaf.dtype} does not match "
+                         f"its template {tuple(template.shape)} {template.dtype}")
+    return leaf.to(template.device)
 
 
 def load_checkpoint(path: str | pathlib.Path, **templates: Any):
     """Restore trees by structure templates -> ``(step, {name: tree})``.
 
     A container template comes back as the same containers holding numpy
-    arrays; a module template (the port's model) has the arrays copied into
+    arrays, or tensors on the device of each tensor leaf of the template (an
+    optimizer state goes back to the card as float32 moments and an int32
+    step); a module template (the port's model) has the arrays copied into
     its parameters, each checked by name, shape and dtype
     (:func:`repro_torch.models.convert.load_named`), and comes back itself.
     """

@@ -6,8 +6,8 @@ explicit device; every ``apply`` is a plain function of tensors.  The matrix
 products stay plain ``@``/``torch.einsum`` calls, as the reference leaves
 them to XLA: the language-model path has no hand-written kernel.
 
-Not in this slice: ``apply_moe``, ``softmax_cross_entropy`` and the
-``_perm_gather`` custom gradient (ROADMAP items A9.1 and A9.5).
+Not in this slice: ``apply_moe`` and the ``_perm_gather`` custom gradient
+(ROADMAP item A9.1).
 """
 
 from __future__ import annotations
@@ -225,6 +225,30 @@ def chunked_causal_attention(q, k, v, *, scale: float, chunk: int,
 def swiglu(x, w_gate, w_in, w_out):
     h = F.silu(x @ w_gate) * (x @ w_in)
     return h @ w_out
+
+
+def softmax_cross_entropy(logits, labels, z_loss: float = 1e-4,
+                          sharded_vocab: bool = False):
+    """Mean next-token loss with z-loss; logits [B, L, V], labels [B, L].
+
+    ``sharded_vocab=True`` is the reference's iota-select form: the label's
+    logit is picked by comparing an ``arange`` over the vocabulary with the
+    label (``torch.where``) and summing, where the other form gathers it.
+    Both compute in float32.
+    """
+    if sharded_vocab:
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        onehot_sel = torch.where(iota == labels[..., None], logits.float(), 0.0)
+        ll = onehot_sel.sum(dim=-1)
+    else:
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse**2
+    return loss.mean()
 
 
 # ---------------------------------------------------------------------------

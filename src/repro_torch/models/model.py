@@ -11,9 +11,16 @@ archived from the port has the reference's shard names and sizes, and its
 restore plans are the reference's.
 
 The stack runs as a Python loop over the period index, the counterpart of
-the reference's ``lax.scan`` (``scan_layers`` and ``remat`` choose how XLA
-compiles the same arithmetic; here there is one way).  The sharding hints
-(``act_hints``, ``seq_parallel``) have nothing to constrain on one device.
+the reference's ``lax.scan`` (``scan_layers`` chooses how XLA compiles the
+same arithmetic; here there is one way).  ``forward`` takes the periods
+through one ``unbind`` per stacked leaf, so that backward stacks each leaf's
+period gradients once (indexing a period instead would write a zero tensor
+of the whole stack per period in backward); ``decode_step`` indexes them
+(``_at``) and writes its cache in place.  While gradients are recorded each
+period runs under ``torch.utils.checkpoint`` as ``remat``/``remat_policy``
+ask, the counterpart of ``jax.checkpoint`` (:func:`_remat`).  The sharding
+hints (``act_hints``, ``seq_parallel``) have nothing to constrain on one
+device.
 ``encode``/``warm_cross_cache`` and the MoE, MLA, Mamba, xLSTM and
 cross-attention apply paths are not in this slice (ROADMAP A9.1-A9.4).
 """
@@ -46,7 +53,8 @@ from .common import ModelConfig, embed_init, init_moe, rms_norm
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module tree: a dict becomes a submodule,
     a list an ``nn.ModuleList``, a tensor a parameter (``requires_grad``
-    off: this slice serves).  Indexing by name, ``get``, ``in`` and
+    off, so serving builds no graph; training turns it on with
+    ``requires_grad_(True)``).  Indexing by name, ``get``, ``in`` and
     ``items`` read it as the dict it was built from."""
 
     def __init__(self, tree: dict[str, Any]):
@@ -195,6 +203,44 @@ def _apply_period(pp, x, cfg: ModelConfig, ctx: Ctx, caches):
     return x, (new_caches or None)
 
 
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under activation checkpointing, as ``cfg`` asks: ``"full"``
+    recomputes everything in backward, ``"dots"`` saves the outputs of the
+    unbatched products (``aten.mm``, what ``dots_with_no_batch_dims_saveable``
+    saves; the batched attention products are recomputed)."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            [torch.ops.aten.mm.default])
+
+    def remat(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return remat
+
+
+def _run_stack(params, x, cfg: ModelConfig, ctx: Ctx):
+    """Train/prefill pass over the prologue and the periods.  The periods are
+    checkpointed only while a gradient is recorded, so serving runs them
+    as they are."""
+    for lp in params.get("prologue", []):
+        x, _ = _apply_layer(lp, x, cfg, "attn", ctx, None)
+
+    def body(h, pp):
+        return _apply_period(pp, h, cfg, ctx, None)[0]
+
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
+        body = _remat(body, cfg)
+    periods = _tree_map(lambda a: a.unbind(0), params["periods"])
+    for i in range(cfg.n_periods):
+        x = body(x, _tree_map(lambda slices: slices[i], periods))
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _head(params, cfg: ModelConfig, x):
     x = rms_norm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -211,14 +257,11 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = params["embed"][tokens].to(cfg.cdtype)
     positions = torch.arange(L, device=tokens.device).expand(B, L)
     ctx = Ctx(positions=positions, memory=memory, causal=True)
-    for lp in params.get("prologue", []):
-        x, _ = _apply_layer(lp, x, cfg, "attn", ctx, None)
-    for i in range(cfg.n_periods):
-        x, _ = _apply_period(_at(params["periods"], i), x, cfg, ctx, None)
+    x, aux = _run_stack(params, x, cfg, ctx)
     logits = _head(params, cfg, x)
     if not cfg.logits_bf16_ce:  # else kept in the compute dtype, as the reference keeps it
         logits = logits.float()
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------

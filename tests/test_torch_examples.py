@@ -13,7 +13,10 @@ the reference's ``python`` run has no tier to fall to.  With a card present,
 each example's default run (the CUDA kernels) must print the numbers of its
 own ``python`` run.  The batched-serving example draws other weights than its
 twin (JAX and torch generators differ), so it is held to its twin's lines
-with the numbers taken out.
+with the numbers taken out.  The training example draws other weights too:
+its corpus, its shard plan (order and service times, on ``torch``/CPU and
+``python``), its parameter count, its preemption and restore lines and each
+step's learning rate are its twin's, its losses are held for shape.
 """
 
 import os
@@ -22,6 +25,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 pytestmark = pytest.mark.port
@@ -122,6 +126,86 @@ def test_serve_batched_defaults_to_the_card():
         return
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, str(script), *SERVE_ARGS], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode != 0
+    assert "torch sees no CUDA device" in proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# the training example
+# ---------------------------------------------------------------------------
+TRAIN_ARGS = ["--steps", "6", "--batch", "4", "--seq", "32"]
+TRAIN_STEP = re.compile(r"^(step +\d+) loss=\d+\.\d{4} (lr=\S+) \d+ ms/step$")
+FINAL = re.compile(r"^final loss \d+\.\d{4} \(started \d+\.\d{4}\); loss decreased: (\w+)$")
+
+
+def train_lines(out: str) -> list[str]:
+    """The printed lines, the losses and times taken out."""
+    lines = []
+    for line in out.splitlines():
+        step, final = TRAIN_STEP.match(line), FINAL.match(line)
+        lines.append(" ".join(step.groups()) if step else
+                     "loss decreased: True or False" if final else line)
+    return lines
+
+
+def load_example(path: Path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{path.parent.name}_{path.stem}",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("backend", ["torch", "python"])
+def test_train_e2e_plans_its_twins_shard_stream(backend):
+    """Same corpus, same LTSP-scheduled shard order and service times."""
+    from repro_torch.core import ExecutionContext
+
+    ref = load_example(ROOT / "examples" / "train_e2e.py")
+    port = load_example(ROOT / "examples" / "torch" / "train_e2e.py")
+    ref_lib, ref_shards = ref.build_corpus_on_tape(12, 4 * 32 * 16, 512)
+    ctx = ExecutionContext(backend=backend, device="cpu", numeric_policy="f64")
+    lib, shards = port.build_corpus_on_tape(12, 4 * 32 * 16, 512, context=ctx)
+    want = list(ref.scheduled_shard_stream(ref_lib, ref_shards))
+    got = list(port.scheduled_shard_stream(lib, shards))
+    assert [(n, t) for n, _, t in got] == [(n, t) for n, _, t in want]
+    assert all(np.array_equal(a, b) for (_, a, _), (_, b, _) in zip(got, want))
+    assert len(got) == 12 and lib.tapes[0].files and lib.context.backend == backend
+
+
+def test_train_e2e_prints_its_twins_lines_and_resumes(tmp_path):
+    ref = run(ROOT / "examples" / "train_e2e.py", [*TRAIN_ARGS, "--ckpt-dir",
+                                                   str(tmp_path / "ref")])
+    port = run(ROOT / "examples" / "torch" / "train_e2e.py",
+               [*TRAIN_ARGS, "--backend", "torch", "--device", "cpu", "--ckpt-dir",
+                str(tmp_path / "port")])
+    assert train_lines(port) == train_lines(ref)
+    lines = train_lines(port)
+    assert lines[0].startswith("corpus: 12 shards; first shard ready at simulated t=")
+    assert "step 3: simulating preemption — dropping live state" in lines
+    assert "step 3: restored from checkpoint, continuing" in lines
+    assert FINAL.match(port.splitlines()[-1])
+
+
+def test_train_e2e_defaults_to_the_card(tmp_path):
+    """Without ``--backend``/``--device`` the plan runs on the CUDA kernels
+    and the model on the card; with no card the example stops with the
+    device error."""
+    import torch
+
+    script = ROOT / "examples" / "torch" / "train_e2e.py"
+    args = [*TRAIN_ARGS, "--ckpt-dir", str(tmp_path / "ckpt")]
+    if torch.cuda.is_available():  # the default length, over which the loss falls
+        cuda = run(script, ["--ckpt-dir", str(tmp_path / "cuda")])
+        python = run(script, ["--ckpt-dir", str(tmp_path / "python"), "--backend", "python"])
+        assert cuda.splitlines()[0] == python.splitlines()[0]
+        assert cuda.splitlines()[-1].endswith("loss decreased: True")
+        return
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, str(script), *args], capture_output=True,
                           text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode != 0
     assert "torch sees no CUDA device" in proc.stderr

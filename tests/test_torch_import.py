@@ -31,7 +31,7 @@ def test_every_module_imports_with_jax_blocked():
                           env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, leaked = proc.stdout.split(maxsplit=1)
-    assert int(count) >= 20 + len(SERVING_SLICE) + len(LM_SLICE) - 1
+    assert int(count) >= 20 + len(SERVING_SLICE) + len(LM_SLICE) + len(TRAINING_SLICE) - 1
     assert leaked.strip() == "[]"
 
 
@@ -51,8 +51,15 @@ LM_SLICE = [
     "repro_torch.configs.qwen2_5_3b", "repro_torch.serving.serve",
 ]
 
+#: training, its fault tolerance and its launcher
+TRAINING_SLICE = [
+    "repro_torch.training", "repro_torch.training.optimizer", "repro_torch.training.train_step",
+    "repro_torch.distributed.fault_tolerance", "repro_torch.launch.cli",
+    "repro_torch.launch.train",
+]
 
-@pytest.mark.parametrize("module", SERVING_SLICE + LM_SLICE)
+
+@pytest.mark.parametrize("module", SERVING_SLICE + LM_SLICE + TRAINING_SLICE)
 def test_serving_slice_imports_with_jax_blocked(module):
     code = (
         "import importlib, sys\n"

@@ -10,6 +10,13 @@ its ``--restore-from-tape`` line is the reference's but for the times, and at
 full width the archive raises the reference's ``tape ... full``.  The port's
 launcher runs on the card by default, never falls back to another backend,
 and refuses by name the meshes and mixers it does not have yet.
+
+The training launcher (``python -m repro_torch.launch.train``) trains on the
+CPU with ``--device cpu`` and prints the reference launcher's lines: the
+mesh and parameter lines and every step's learning rate exactly, the loss
+and gradient norm as numbers (the two draw different weights from one
+seed); its checkpoint resumes at the step the reference's resumes at.  It
+too runs on the card by default and exits 2 on ``--mesh pod|multipod``.
 """
 
 import os
@@ -18,11 +25,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from repro.launch import serve as ref_serve
+from repro.launch import train as ref_train
 from repro_torch.launch import serve as port_serve
+from repro_torch.launch import train as port_train
 
 pytestmark = pytest.mark.port
 
@@ -279,3 +289,71 @@ def test_written_files_match_reference_launcher(mode, tmp_path, capsys, monkeypa
         written[name] = (table(printed), {p.name: p.read_bytes() for p in sorted(out.iterdir())})
     assert written["port"] == written["ref"]
     assert len(written["port"][1]) == (5 if mode == "--serve-tape-queue" else 3)
+
+
+# ---------------------------------------------------------------------------
+# the training launcher
+# ---------------------------------------------------------------------------
+TRAIN_ARGS = ["--reduced", "--steps", "12", "--batch", "4", "--seq", "32", "--ckpt-every", "5"]
+STEP = re.compile(r"^step +(\d+) loss=(\d+\.\d{4}) lr=(\S+) gnorm=(\d+\.\d{2})$")
+
+
+def train_lines(out: str) -> list:
+    """Each printed line, a step line as (step, lr) with its loss and norm
+    checked for shape only."""
+    lines = []
+    for line in out.splitlines():
+        m = STEP.match(line)
+        lines.append((m.group(1), m.group(3)) if m else line)
+    return lines
+
+
+def test_train_launcher_prints_the_reference_lines_and_resumes(tmp_path, capsys, monkeypatch):
+    printed = {}
+    for name, extra in (("first", []), ("resume", ["--resume", "--steps", "14"])):
+        monkeypatch.setattr(sys, "argv", ["train", *TRAIN_ARGS, "--ckpt-dir",
+                                          str(tmp_path / "ref"), *extra])
+        ref_train.main()
+        ref_out = capsys.readouterr().out
+        code = port_train.main([*TRAIN_ARGS, "--device", "cpu", "--ckpt-dir",
+                                str(tmp_path / "port"), *extra])
+        assert code == 0
+        printed[name] = (train_lines(capsys.readouterr().out), train_lines(ref_out))
+    port, ref = printed["first"]
+    assert port == ref
+    assert port[:2] == ["mesh: {'data': 1, 'model': 1}  arch: granite-8b", "params: 0.1M"]
+    assert port[2:] == [("10", "1.50e-04"), ("12", "1.80e-04"), "done"]
+    port, ref = printed["resume"]
+    assert port == ref and port[2] == "resumed from step 10"
+    assert sorted(p.name for p in (tmp_path / "port").iterdir()) == \
+        sorted(p.name for p in (tmp_path / "ref").iterdir())
+
+
+def test_train_launcher_returns_each_steps_record(tmp_path):
+    args = port_train.build_parser().parse_args(
+        [*TRAIN_ARGS, "--device", "cpu", "--ckpt-dir", str(tmp_path), "--set",
+         "remat_policy=dots", "microbatches=2"])
+    run = port_train.train(args)
+    assert run["cfg"].remat_policy == "dots" and run["cfg"].microbatches == 2
+    assert run["start"] == 0 and len(run["history"]) == 12 and int(run["opt_state"]["step"]) == 12
+    assert all(np.isfinite(h["loss"]) and h["seconds"] > 0 for h in run["history"])
+
+
+@pytest.mark.parametrize("args", [["--mesh", "pod"], ["--mesh", "multipod"],
+                                  ["--arch", "jamba-v0.1-52b", "--reduced", "--device", "cpu",
+                                   "--steps", "1"]])
+def test_train_launcher_exits_2_on_what_the_port_lacks(args, capsys):
+    assert port_train.main(args) == 2
+    err = capsys.readouterr().err
+    assert "ROADMAP item A9" in err
+    if "--mesh" in args:
+        assert "ROADMAP item A9.6" in err
+
+
+def test_train_launcher_defaults_to_the_card():
+    args = port_train.build_parser().parse_args([])
+    assert (args.device, args.arch, args.steps, args.ckpt_every) == ("cuda", "granite-8b", 100, 50)
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="sees no CUDA device"):
+        port_train.main(["--reduced", "--steps", "1"])

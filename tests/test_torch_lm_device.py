@@ -1,0 +1,128 @@
+"""The port's dense decoders on the card against the port on the CPU.
+
+Marked ``cuda``: they skip without a card, and this module imports neither
+JAX nor the JAX package, so that it collects where the card is.  The four
+dense decoders, reduced, in float32 compute, with weights from one seed (the
+constant leaves, norm weights of ones and biases of zeros, moved off their
+constants so that they matter): forward and every decode step within
+``rtol = atol = 1e-4`` of the CPU (cuBLAS sums the same float32 products in
+its own order; TF32 is off, and checked), the same greedy tokens, and one
+train step: loss within ``rtol = 1e-5``, every gradient within 1e-4 of its
+leaf's largest element, the parameters after the step within 2e-5 (a
+flipped gradient sign would move an element by 2 x 3e-4).  Run them on a
+card with ``pytest -m cuda tests/test_torch_lm_device.py``.
+"""
+
+import copy
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.distributed.checkpoint import named_leaves
+from repro_torch.models.model import decode_step, forward, init_cache
+from repro_torch.serving.serve import make_serve_step
+from repro_torch.training import OptConfig, adamw_init, init_train_state, loss_fn, make_train_step
+
+pytestmark = [pytest.mark.port, pytest.mark.cuda]
+
+DENSE = ["deepseek-coder-33b", "granite-8b", "qwen2.5-3b", "yi-34b"]
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    return "cuda"
+
+
+def cpu_model(arch: str, **overrides):
+    """A reduced dense decoder in float32 on the CPU, gradients on."""
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), compute_dtype="float32", **overrides)
+    params, _ = init_train_state(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for p in params.parameters():
+            if bool((p == p.flatten()[0]).all()):
+                p += torch.from_numpy(rng.normal(0.0, 0.1, tuple(p.shape)).astype(np.float32))
+    return cfg, params
+
+
+def on_card(model, device: str, grad: bool):
+    """A copy of ``model`` on ``device``, with gradients on or off."""
+    return copy.deepcopy(model).to(device).requires_grad_(grad)
+
+
+def tokens_of(cfg, shape=(2, 16)) -> torch.Tensor:
+    rng = np.random.default_rng(11)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape).astype(np.int32))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_cuda_forward_and_decode_match_cpu(arch, cuda_device):
+    cfg, cpu = cpu_model(arch)
+    cpu.requires_grad_(False)
+    card = on_card(cpu, cuda_device, grad=False)
+    tokens = tokens_of(cfg)
+    want, _ = forward(cpu, cfg, tokens)
+    got, _ = forward(card, cfg, tokens.to(cuda_device))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+    B, L = tokens.shape
+    caches = init_cache(cfg, B, L, device="cpu"), init_cache(cfg, B, L, device=cuda_device)
+    for t in range(L):
+        want, _ = decode_step(cpu, cfg, tokens[:, t : t + 1], caches[0], t)
+        got, _ = decode_step(card, cfg, tokens[:, t : t + 1].to(cuda_device), caches[1], t)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_cuda_greedy_tokens_match_cpu(arch, cuda_device):
+    """Teacher-forced over a 4-token prompt, then 8 greedy steps."""
+    cfg, cpu = cpu_model(arch)
+    cpu.requires_grad_(False)
+    card = on_card(cpu, cuda_device, grad=False)
+    tokens = tokens_of(cfg)
+    prompt, steps = 4, 8
+    serve = make_serve_step(cfg)
+    out = {}
+    for device, model in (("cpu", cpu), (cuda_device, card)):
+        cache = init_cache(cfg, 2, prompt + steps, device=device)
+        tok, seq = tokens[:, :1].to(device), []
+        for t in range(prompt + steps):
+            nxt, _, cache = serve(model, cache, tok, t)
+            if t + 1 < prompt:
+                tok = tokens[:, t + 1 : t + 2].to(device)
+            else:
+                tok = nxt
+                seq.append(nxt.cpu())
+        out[device] = torch.cat(seq, 1)
+    assert torch.equal(out[cuda_device], out["cpu"]) and out["cpu"].shape == (2, steps + 1)
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_cuda_train_step_matches_cpu(arch, remat, cuda_device):
+    """One step's loss and every gradient on the card against the CPU, then
+    the step itself."""
+    cfg, cpu = cpu_model(arch, remat_policy=remat)
+    card = on_card(cpu, cuda_device, grad=True)
+    tokens = tokens_of(cfg, (4, 16))
+    totals, grads = {}, {}
+    for device, model in (("cpu", cpu), (cuda_device, card)):
+        total, _ = loss_fn(model, cfg, {"tokens": tokens.to(device)})
+        grads[device] = torch.autograd.grad(total, [p for _, p in named_leaves(model)])
+        totals[device] = float(total.detach())
+    np.testing.assert_allclose(totals[cuda_device], totals["cpu"], rtol=1e-5)
+    for (name, _), got, want in zip(named_leaves(cpu), grads[cuda_device], grads["cpu"]):
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), (name, err)
+    oc = OptConfig(warmup_steps=1, total_steps=10)
+    for device, model in (("cpu", cpu), (cuda_device, card)):
+        make_train_step(cfg, oc)(model, adamw_init(model), {"tokens": tokens.to(device)})
+    for (name, a), (_, b) in zip(named_leaves(card), named_leaves(cpu)):
+        np.testing.assert_allclose(a.detach().cpu().numpy(), b.detach().numpy(), rtol=0,
+                                   atol=2e-5, err_msg=name)
