@@ -31,7 +31,14 @@ timed and profiled; 10b the reduced dense decoders' loss and gradients on
 the card against the CPU, and 4 microbatches against the whole batch; 10c
 the training example's corpus plan through the CUDA kernels against
 ``python``, the example with its defaults, and the launcher checkpointed
-and resumed.  Every phase fails the run on any mismatch.
+and resumed.  Phase 11 runs the MoE and MLA paths: 11a DeepSeek-V2 at full
+width cut to 3 layers (float32 decode against forward, then bf16 serving,
+timed and profiled); 11b the restore of the whole DeepSeek-V2 and Kimi-K2
+checkpoints from 20 TB cartridges, planned through the CUDA kernels and
+held equal to ``python``; 11c both MoE archs reduced on the card against
+the CPU (forward, decode, routing, greedy tokens, a train step under both
+dispatch modes) and through both launchers.  Every phase fails the run on
+any mismatch.
 
 Usage, from the root of a checkout, on a machine with a CUDA card::
 
@@ -243,6 +250,24 @@ TRAIN_MICRO_BOUND = 2e-5
 TRAIN_RESUME = (["--reduced", "--steps", "30", "--ckpt-every", "10"],
                 ["--reduced", "--steps", "40", "--ckpt-every", "10", "--resume"])
 
+#: phase 11a: DeepSeek-V2 at full width, its depth cut to three layers (the
+#: dense prologue layer and two MoE periods: 9,330,795,520 float32
+#: parameters, 34.76 GiB; four periods would need 69 GB of parameters)
+MOE_ARCH = "deepseek-v2-236b"
+MOE_LAYERS = 3
+MOE_PARAMS = 9_330_795_520
+#: 11b: the whole checkpoints, planned from their shapes (``meta``), each on
+#: a library of 20 TB cartridges (the paper's IN2P3 ones, as phase 7 scales
+#: to; in bytes, with the paper's half-segment U-turn turned into bytes too):
+#: the largest leaves are 297 GB and 1.35 TB, past LM_ARCHIVE's 4 GB
+MOE_RESTORE_ARCHS = ("deepseek-v2-236b", "kimi-k2-1t-a32b")
+MOE_TAPE_BYTES = 20 * 10**12
+#: 11c: the MoE archs reduced, float32 on the card against the CPU port
+#: (phase 10b's tolerances), then both launchers on the card
+MOE_ARCHS = ("deepseek-v2-236b", "kimi-k2-1t-a32b")
+MOE_TOL = 1e-4  # rtol = atol, as tests/test_torch_lm_device.py holds them
+MOE_LAUNCHER_RUNS = {"serve": ["-m", "repro_torch.launch.serve", "--reduced"],
+                     "train": ["-m", "repro_torch.launch.train", "--reduced", "--steps", "10"]}
 
 def serving_exactness(dev: str) -> None:
     """Phase 6: serve the reference's serving scenarios on ``cuda`` and on
@@ -985,46 +1010,78 @@ def examples_on_the_card() -> None:
                 proc.wait()
 
 
-def lm_serving(dev: str) -> tuple:
-    """Phase 9a: Qwen2.5-3B at full width on the card.  Float32 decode at
-    every position must reproduce the full-sequence forward; then the
-    default bf16 compute serves a batch through ``make_serve_step``, timed,
-    with every logit finite.  Returns the parameters, for 9b."""
+def lm_serving(dev: str):
+    """Phase 9a: Qwen2.5-3B at full width on the card (see
+    :func:`serve_full_width`).  Returns the parameters, for 9b."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[LM_ARCH]
+    return serve_full_width("9a", cfg, dev, check_overrides={})
+
+
+#: operators whose own kernel time makes each part of a decode step's split
+OP_GROUPS = {
+    "casts (float32 -> bf16 weights)": ("aten::copy_",),
+    "products": ("aten::mm", "aten::bmm", "aten::addmm"),
+    "attention (softmax, mask)": ("aten::_softmax", "aten::masked_fill_"),
+    "index, sort and scatter work (the MoE dispatch, the embedding lookup)": (
+        "aten::sort", "aten::argsort", "aten::cumsum", "aten::index", "aten::index_put_",
+        "aten::_index_put_impl_", "aten::index_add_", "aten::index_add", "aten::scatter_add_",
+        "aten::where", "aten::clamp", "aten::repeat_interleave", "aten::lt", "aten::sub",
+        "aten::gather"),
+}
+
+
+def serve_full_width(phase: str, cfg, dev: str, check_overrides: dict, cut: str = ""):
+    """A language model at full width on the card: parameters from a seed,
+    float32 decode at every position must reproduce the full-sequence
+    forward (``check_overrides`` on top of float32 compute); then the
+    config's own bf16 compute serves a batch through ``make_serve_step``,
+    timed, with every logit finite, and four steps run under the profiler.
+    Returns the parameters."""
     import dataclasses
 
     import torch
 
-    from repro_torch.configs import ARCHS
     from repro_torch.models.model import decode_step, forward, init_cache, init_model
     from repro_torch.serving.serve import make_serve_step
 
     if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
-        raise SystemExit("phase 9a FAILED: float32 products would run in TF32")
-    cfg = ARCHS[LM_ARCH]
+        raise SystemExit(f"phase {phase} FAILED: float32 products would run in TF32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_model(torch.Generator(dev).manual_seed(0), cfg, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"phase 9a: {LM_ARCH} at full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
-        f"{n_params} parameters, {n_params * 4 / 2**30:.3f} GiB in float32, initialised in "
-        f"{time.perf_counter() - t0:.3f} s")
+    moe = (f", {cfg.num_experts} experts top {cfg.top_k} + {cfg.num_shared_experts} shared of "
+           f"width {cfg.moe_d_ff}, {cfg.first_k_dense} dense layer of width {cfg.dense_d_ff}"
+           if cfg.num_experts else "")
+    mla = (f", MLA (q rank {cfg.q_lora_rank}, kv rank {cfg.kv_lora_rank})" if cfg.use_mla
+           else "")
+    log(f"phase {phase}: {cfg.arch_id} at full width{cut} ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads{mla}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}{moe}): {n_params} parameters, {n_params * 4 / 2**30:.3f} GiB in "
+        f"float32, initialised in {time.perf_counter() - t0:.3f} s (peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB)")
 
     # float32: decode at every position against the full-sequence forward
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32", **check_overrides)
     B, L = LM_CHECK["batch"], LM_CHECK["seq"]
     tokens = torch.randint(0, cfg.vocab_size, (B, L), device=dev,
                            generator=torch.Generator(dev).manual_seed(2))
+    t0 = time.perf_counter()
     full, _ = forward(params, cfg32, tokens)
     cache = init_cache(cfg32, B, L, device=dev)
     dec = torch.stack([decode_step(params, cfg32, tokens[:, t : t + 1], cache, t)[0][:, 0]
                        for t in range(L)], dim=1)
     rel = float((dec - full).abs().max() / full.abs().max())
     if not (rel < LM_CHECK["rel_bound"] and bool(torch.isfinite(full).all())):
-        raise SystemExit(f"phase 9a FAILED: float32 decode != forward, rel {rel}")
-    log(f"phase 9a: float32 decode at all {L} positions == forward (B={B}): rel "
+        raise SystemExit(f"phase {phase} FAILED: float32 decode != forward, rel {rel}")
+    log(f"phase {phase}: float32 decode at all {L} positions == forward (B={B}"
+        f"{''.join(f', {k} {v}' for k, v in check_overrides.items())}): rel "
         f"max|dec - full| / max|full| = {rel:.3e} < {LM_CHECK['rel_bound']} "
-        f"({time.perf_counter() - t0:.3f} s with the initialisation)")
+        f"({time.perf_counter() - t0:.3f} s)")
     del full, dec, cache
 
     # bf16 (the config's compute dtype): a batch served through make_serve_step
@@ -1053,11 +1110,12 @@ def lm_serving(dev: str) -> tuple:
     peak = torch.cuda.max_memory_allocated()
     in_range = 0 <= out.min() and out.max() < cfg.vocab_size
     if not bool(finite) or out.shape != (Bs, N) or not in_range:
-        raise SystemExit("phase 9a FAILED: a bf16 logit is not finite or a token is out of range")
+        raise SystemExit(f"phase {phase} FAILED: a bf16 logit is not finite or a token is out "
+                         f"of range")
     step_ms = 1e3 * t_decode / N
     # the least a step must move: every float32 parameter read once
     bound = n_params * 4 / HBM_BYTES_PER_S * 1e3
-    log(f"phase 9a: bf16 serving, batch {Bs}: prefill {P - 1} steps in {t_prefill:.3f} s "
+    log(f"phase {phase}: bf16 serving, batch {Bs}: prefill {P - 1} steps in {t_prefill:.3f} s "
         f"({1e3 * t_prefill / (P - 1):.3f} ms a step); decode {N} steps in {t_decode:.3f} s: "
         f"{step_ms:.3f} ms a step, {Bs * N / t_decode:.1f} tok/s; bound of a step (float32 "
         f"parameters read once) {bound:.3f} ms; peak device memory {peak / 2**30:.3f} GiB; "
@@ -1077,15 +1135,21 @@ def lm_serving(dev: str) -> tuple:
             wall = time.perf_counter() - t0
         split = profile_split(prof, 4)
         total = split["kernel_ms"]
-        log(f"phase 9a: profiler, 4 decode steps: {1e3 * wall / 4:.3f} ms wall and "
+        log(f"phase {phase}: profiler, 4 decode steps: {1e3 * wall / 4:.3f} ms wall and "
             f"{total:.3f} ms of kernel time a step ({100 * total / 250 / wall:.1f}% "
             f"busy), {split['kernels']:.0f} kernels and {split['ops']:.0f} aten "
             f"operators a step")
+        grouped = {name: sum(row[0] for row in split["by_op"] if row[1] in ops) / 4e3
+                   for name, ops in OP_GROUPS.items()}
+        grouped["other"] = total - sum(grouped.values())
+        log(f"phase {phase}: kernel time a step by part: " + "; ".join(
+            f"{name} {ms:.3f} ms ({100 * ms / max(total, 1e-9):.1f}%)"
+            for name, ms in grouped.items()))
         for dev_us, key, count in split["by_kernel"][:8]:
             log(f"  {100 * dev_us / 4e3 / max(total, 1e-9):5.1f}% {dev_us / 4e3:8.3f} ms/step "
                 f"x{count // 4}: {key[:100]}")
     except RuntimeError as e:  # the profiler is not needed for any check
-        log(f"phase 9a: profiler not measured ({e})")
+        log(f"phase {phase}: profiler not measured ({e})")
     del cache
     return params
 
@@ -1149,13 +1213,13 @@ def restore_line(out: str) -> tuple[str, str]:
     return m.group(2), f"[{m.group(1)}]: {m.group(3)} ({m.group(4)})"
 
 
-def served_line(out: str) -> str:
+def served_line(out: str, phase: str = "9b") -> str:
     """The launcher's LM serving line (tokens in seconds, tok/s)."""
     import re
 
-    served = re.search(r"^\S+: \d+x\d+ tokens in .*tok/s\)$", out, re.M)
+    served = re.search(r"^\S+: \d+x\d+ tokens in [\d.]+s \(\d+ tok/s\)$", out, re.M)
     if served is None or "first sequence: [" not in out:
-        raise SystemExit(f"phase 9b FAILED: the launcher served nothing:\n{out[-2000:]}")
+        raise SystemExit(f"phase {phase} FAILED: the launcher served nothing:\n{out[-2000:]}")
     return served.group(0)
 
 
@@ -1443,6 +1507,226 @@ def reduced_training(dev: str) -> None:
         log(f"phase 10b: {arch} reduced, float32: loss rel {loss_rel:.3e}, gradients within "
             f"{rel:.3e} of each leaf's largest element of the CPU's (held at {TRAIN_GRAD_REL}); "
             f"4 microbatches vs 1: max |dp| {micro:.3e} < {TRAIN_MICRO_BOUND}")
+    torch.cuda.empty_cache()
+
+
+def moe_serving(dev: str) -> None:
+    """Phase 11a: DeepSeek-V2 at full width, cut to three layers.  Its
+    float32 check runs with the capacity factor raised to the number of
+    experts: every assignment is then kept (C = T * K), in the full-sequence
+    forward and in each decode step alike, as the reference's own
+    decode-vs-forward test raises it (tests/test_models.py); the bf16
+    serving keeps the config's 1.25, which drops at decode (C = 1)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS[MOE_ARCH], num_layers=MOE_LAYERS)
+    params = serve_full_width("11a", cfg, dev,
+                              check_overrides={"capacity_factor": float(cfg.num_experts)},
+                              cut=f", depth cut from {ARCHS[MOE_ARCH].num_layers} to "
+                                  f"{MOE_LAYERS} layers")
+    n_params = sum(p.numel() for p in params.parameters())
+    del params
+    torch.cuda.empty_cache()
+    if n_params != MOE_PARAMS:
+        raise SystemExit(f"phase 11a FAILED: {n_params} parameters, not {MOE_PARAMS}")
+
+
+def moe_restore(dev: str, u_turn_mb: int) -> dict:
+    """Phase 11b: the restore of both whole MoE checkpoints from tape,
+    planned under ``dp`` and ``simpledp`` on the card in float64 tables and
+    held equal to ``python``.  The trees hold shapes only (``meta``); the
+    U-turn is the paper profile's, in MB, turned into bytes.  Returns the
+    launches of the plans."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import ExecutionContext
+    from repro_torch.distributed.checkpoint import archive_to_tape, plan_restore
+    from repro_torch.kernels.ltsp_dp import ltsp_dp
+    from repro_torch.models.model import init_model
+    from repro_torch.storage.tape import TapeLibrary
+
+    cuda = ExecutionContext(backend="cuda", device=dev, numeric_policy="f64")
+    libs = {}
+    for arch in MOE_RESTORE_ARCHS:
+        params = init_model(torch.Generator().manual_seed(0), ARCHS[arch], device="meta")
+        sizes = [p.numel() for p in params.parameters()]
+        lib = TapeLibrary(capacity_per_tape=MOE_TAPE_BYTES, u_turn=u_turn_mb * 10**6)
+        shards = archive_to_tape(lib, arch, params, bytes_per_elem=4)
+        libs[arch] = (lib, shards, {s: 8 if "embed" in s else 2 for s in shards}, sizes)
+        del params
+    ltsp_dp.reset_launches()
+    plans, walls = {}, {}
+    for arch, (lib, shards, consumers, _) in libs.items():
+        for policy in ("dp", "simpledp"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plans[arch, policy] = plan_restore(lib, shards, consumers, policy=policy,
+                                               context=cuda)
+            torch.cuda.synchronize()
+            walls[arch, policy] = time.perf_counter() - t0
+    launches = dict(ltsp_dp.LAUNCHES)
+
+    def plain(read_plans):
+        return [dataclasses.replace(p, backend="") for p in read_plans]
+
+    for (arch, policy), got in plans.items():
+        lib, shards, consumers, sizes = libs[arch]
+        want = plan_restore(lib, shards, consumers, policy=policy,
+                            context=ExecutionContext(backend="python"))
+        if plain(got) != plain(want) or any(p.backend != "cuda" for p in got):
+            raise SystemExit(f"phase 11b FAILED: {arch} {policy} restore plans on cuda != "
+                             f"python")
+        mean = sum(p.total_cost for p in got) / sum(consumers.values())
+        log(f"phase 11b: {arch} whole ({sum(sizes)} parameters, {len(shards)} shards, largest "
+            f"{4 * max(sizes) / 1e9:.1f} GB) on {len(lib.tapes)} cartridge(s) of "
+            f"{MOE_TAPE_BYTES / 1e12:.0f} TB: {policy} mean arrival {mean:.6g}, "
+            f"planned on cuda in {1e3 * walls[arch, policy]:.3f} ms wall, == python")
+    if launches["far_fold_kernel"] + launches["near_fold_kernel"] == 0 or \
+            launches["traceback_kernel"] == 0:
+        raise SystemExit(f"phase 11b FAILED: the restore plans launched {launches}")
+    log(f"phase 11b: launches of the restore plans {launches}")
+    return launches
+
+
+def moe_reduced(dev: str) -> None:
+    """Phase 11c: the MoE archs reduced, float32, on the card against the CPU
+    port: forward and its aux loss, every decode step, the greedy tokens,
+    each period's routing (integer: exactly), and one train step's loss, aux
+    loss and gradients under both dispatch modes; then the serve and train
+    launchers on the card, as processes."""
+    import copy
+    import dataclasses
+    import math
+    import os
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed.checkpoint import named_leaves
+    from repro_torch.models.common import moe_route, moe_slots
+    from repro_torch.models.model import decode_step, forward, init_cache
+    from repro_torch.serving.serve import make_serve_step
+    from repro_torch.training import init_train_state, loss_fn
+
+    work = ROOT / "build" / "chip_smoke_moe"
+    shutil.rmtree(work, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {}
+    try:
+        for arch in MOE_ARCHS:  # the launchers run while the in-process checks do
+            for name, args in MOE_LAUNCHER_RUNS.items():
+                cwd = work / f"{arch}-{name}"
+                cwd.mkdir(parents=True)
+                extra = ["--ckpt-dir", str(cwd / "ckpt")] if name == "train" else []
+                procs[arch, name] = subprocess.Popen(
+                    [sys.executable, *args, "--arch", arch, *extra], cwd=cwd, env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        for arch in MOE_ARCHS:
+            cfg = dataclasses.replace(reduced(ARCHS[arch]), compute_dtype="float32")
+            cpu, _ = init_train_state(torch.Generator().manual_seed(0), cfg, device="cpu")
+            cpu.requires_grad_(False)
+            card = copy.deepcopy(cpu).to(dev)
+            tokens = torch.from_numpy(np.random.default_rng(11).integers(
+                0, cfg.vocab_size, (2, 16)).astype(np.int32))
+            pairs = {"forward": (forward(card, cfg, tokens.to(dev)), forward(cpu, cfg, tokens))}
+            pairs["aux"] = (pairs["forward"][0][1], pairs["forward"][1][1])
+            pairs["forward"] = (pairs["forward"][0][0], pairs["forward"][1][0])
+            caches = init_cache(cfg, 2, 16, device=dev), init_cache(cfg, 2, 16, device="cpu")
+            for t in range(16):
+                pairs[f"decode {t}"] = (
+                    decode_step(card, cfg, tokens[:, t : t + 1].to(dev), caches[0], t)[0],
+                    decode_step(cpu, cfg, tokens[:, t : t + 1], caches[1], t)[0])
+            err = {k: float((got.cpu() - want).abs().max()) for k, (got, want) in pairs.items()}
+            if not all(torch.allclose(got.cpu(), want, rtol=MOE_TOL, atol=MOE_TOL)
+                       for got, want in pairs.values()):
+                raise SystemExit(f"phase 11c FAILED: {arch}: cuda != cpu, max abs errors {err}")
+            err["decode"] = max(v for k, v in err.items() if k.startswith("decode "))
+            # each period's routing of one input, exactly
+            x = torch.from_numpy(np.random.default_rng(3).normal(
+                size=(32, cfg.d_model)).astype(np.float32))
+            router = cpu["periods"]["l0"]["moe"]["router"]
+            for i in range(cfg.n_periods):
+                routed = [(top_e.cpu(), moe_slots(top_e, cfg)[1].cpu()) for top_e in (
+                    moe_route(router[i].to(d), x.to(d), cfg)[2] for d in ("cpu", dev))]
+                if not all(torch.equal(a, b) for a, b in zip(*routed)):
+                    raise SystemExit(f"phase 11c FAILED: {arch}: period {i} routes differently "
+                                     f"on cuda")
+            # the greedy tokens: 4 teacher-forced, then 8 greedy
+            serve, seqs = make_serve_step(cfg), {}
+            for d, model in (("cpu", cpu), (dev, card)):
+                cache, tok, seq = init_cache(cfg, 2, 12, device=d), tokens[:, :1].to(d), []
+                for t in range(12):
+                    nxt, _, cache = serve(model, cache, tok, t)
+                    tok = tokens[:, t + 1 : t + 2].to(d) if t + 1 < 4 else nxt
+                    seq += [nxt.cpu()] if t + 1 >= 4 else []
+                seqs[d] = torch.cat(seq, 1)
+            if not torch.equal(seqs["cpu"], seqs[dev]):
+                raise SystemExit(f"phase 11c FAILED: {arch}: greedy tokens on cuda != cpu")
+            # one train step's loss, aux loss and gradients, both dispatch modes
+            train = {}
+            for gather in (False, True):
+                gcfg = dataclasses.replace(cfg, moe_gather_dispatch=gather)
+                toks = torch.from_numpy(np.random.default_rng(11).integers(
+                    0, cfg.vocab_size, (8, 16)).astype(np.int32))
+                res = {}
+                for d, model in (("cpu", cpu), (dev, card)):
+                    model.requires_grad_(True)
+                    total, metrics = loss_fn(model, gcfg, {"tokens": toks.to(d)})
+                    grads = torch.autograd.grad(total, [p for _, p in named_leaves(model)])
+                    res[d] = (float(total.detach()), float(metrics["aux_loss"].detach()), grads)
+                    model.requires_grad_(False)
+                (tc, ac, gc), (tg, ag, gg) = res["cpu"], res[dev]
+                rel = max(float((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                          for g, w in zip(gg, gc))
+                loss_rel, aux_rel = abs(tg - tc) / abs(tc), abs(ag - ac) / abs(ac)
+                if not (rel <= TRAIN_GRAD_REL and loss_rel <= 1e-5 and aux_rel <= 1e-5):
+                    raise SystemExit(f"phase 11c FAILED: {arch} (gather {gather}): gradients "
+                                     f"rel {rel}, loss rel {loss_rel}, aux rel {aux_rel}")
+                train[gather] = (loss_rel, aux_rel, rel)
+            log(f"phase 11c: {arch} reduced, float32, cuda vs cpu: forward {err['forward']:.3e}, "
+                f"aux {err['aux']:.3e}, decode {err['decode']:.3e} (max abs), routing of "
+                f"{cfg.n_periods} periods equal, greedy tokens equal; train step "
+                + "; ".join(f"{'gather' if g else 'scatter'} dispatch: loss rel {lr:.3e}, aux "
+                            f"rel {ar:.3e}, gradients within {gr:.3e} of each leaf's largest "
+                            f"element" for g, (lr, ar, gr) in train.items()))
+            del cpu, card
+
+        for (arch, name), proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise SystemExit(f"phase 11c FAILED: {name} launcher --arch {arch} exited "
+                                 f"{proc.returncode}:\n{err[-3000:]}")
+            if name == "serve":
+                line = served_line(out, "11c")
+                numbers = re.findall(r"[\d.]+(?=s \()|\d+(?= tok/s)", line)
+            else:  # the step line as the launcher prints it: a nan or inf does not match
+                step = re.search(r"^step +10 loss=(\d+\.\d{4}) lr=(\S+) gnorm=(\d+\.\d{2})$",
+                                 out, re.M)
+                line, numbers = (step.group(0), step.groups()) if step else ("", ())
+                if out.splitlines()[-1:] != ["done"]:
+                    line = ""
+            if not line or len(numbers) != 3 - (name == "serve") or \
+                    not all(math.isfinite(float(v)) for v in numbers):
+                raise SystemExit(f"phase 11c FAILED: {name} launcher --arch {arch} "
+                                 f"--reduced printed:\n{out[-2000:]}")
+            log(f"phase 11c: {name} launcher --arch {arch} --reduced on the card: {line}")
+        shutil.rmtree(work, ignore_errors=True)
+    finally:  # no process outlives the phase, whatever failed
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     torch.cuda.empty_cache()
 
 
@@ -1990,6 +2274,17 @@ def main() -> int:
     t0 = time.perf_counter()
     path_launches["10c corpus plan"] = training_paths(dev)
     phases["10c example and launcher"] = time.perf_counter() - t0
+
+    # ---- phase 11: the MoE and MLA paths -----------------------------------------
+    t0 = time.perf_counter()
+    moe_serving(dev)
+    phases["11a DeepSeek-V2 at full width (3 layers)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_launches["11b MoE checkpoint restore plans"] = moe_restore(dev, u_half)
+    phases["11b MoE checkpoint restore plans"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_reduced(dev)
+    phases["11c reduced MoE archs, cuda vs cpu, launchers"] = time.perf_counter() - t0
 
     # the kernels line counts the launches of every path, each path's counts
     # set to 0 just before it and read just after

@@ -12,7 +12,8 @@ override (``remat_policy``, ``microbatches``, ``logits_bf16_ce``, ...).  It
 trains on the card (``--device cuda``, the default; without a card it
 raises, and nothing falls back) or where ``--device`` says.  One device
 trains: ``--mesh pod|multipod`` needs the sharding slice of the port and
-exits 2, as does an architecture whose mixers the port does not apply yet.
+exits 2, as does an architecture whose mixers the port does not apply yet
+(ROADMAP A9.2-A9.4); the MoE architectures train, their aux loss weighed in.
 A step's time, fed to the straggler monitor, runs until its loss is read
 on the host, so it is the step's time on the device.
 """

@@ -5,10 +5,11 @@ The port's copy of the JAX package's ``models/blocks.py``.  Every mixer has
 ``init_<kind>(gen, cfg, *, device) -> params`` and its cache initialiser, so
 that every architecture's parameter tree has the reference's names and
 shapes (the tape archive and its restore plans depend on them).  Of the
-``apply_<kind>(p, x, cfg, ctx, cache=None) -> (y, new_cache)`` paths this
-slice has attention (full sequence and single-token decode) and the FFN; the
-other mixers raise :class:`NotImplementedError` naming themselves and the
-ROADMAP item that ports them.
+``apply_<kind>(p, x, cfg, ctx, cache=None) -> (y, new_cache)`` paths the
+port has attention and Multi-head Latent Attention (full sequence and
+single-token decode; MLA decodes absorbed, over its compressed cache) and
+the FFN; the other mixers raise :class:`NotImplementedError` naming
+themselves and the ROADMAP item that ports them.
 
 ``cache is None`` selects the full-sequence path (prefill); otherwise the
 single-token decode path runs and writes the cache in place.
@@ -27,6 +28,7 @@ from .common import (
     causal_attention,
     chunked_causal_attention,
     dense_init,
+    rms_norm,
     rope_freqs,
     swiglu,
 )
@@ -70,6 +72,24 @@ def _proj(x, w, b=None):
     return y
 
 
+def _cache_slot(pos: int, S: int) -> int:
+    """The cache slot decode writes at ``pos``: the reference's
+    ``dynamic_update_slice`` clamps the start index into the cache, so a
+    position at or past ``max_len`` writes the last slot."""
+    return min(max(pos, 0), S - 1)
+
+
+def _attend(q, k, v, cfg: ModelConfig, ctx: Ctx, scale: float):
+    """Full-sequence attention, chunked over queries where the config asks
+    and the sequence divides into more than one chunk."""
+    L = q.shape[1]
+    if cfg.attn_q_chunk and ctx.causal and L % cfg.attn_q_chunk == 0 and L > cfg.attn_q_chunk:
+        return chunked_causal_attention(q, k, v, scale=scale, chunk=cfg.attn_q_chunk,
+                                        scores_f32=cfg.attn_scores_f32)
+    return causal_attention(q, k, v, scale=scale, causal=ctx.causal,
+                            scores_f32=cfg.attn_scores_f32)
+
+
 def apply_attn(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
     B, L, D = x.shape
     Hq, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -82,13 +102,7 @@ def apply_attn(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
         cos, sin = rope_freqs(ctx.positions, dh, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        if cfg.attn_q_chunk and ctx.causal and L % cfg.attn_q_chunk == 0 and L > cfg.attn_q_chunk:
-            out = chunked_causal_attention(
-                q, k, v, scale=scale, chunk=cfg.attn_q_chunk,
-                scores_f32=cfg.attn_scores_f32)
-        else:
-            out = causal_attention(q, k, v, scale=scale, causal=ctx.causal,
-                                   scores_f32=cfg.attn_scores_f32)
+        out = _attend(q, k, v, cfg, ctx, scale)
         new_cache = None
     else:
         # decode: write one token into the cache, attend over the full cache
@@ -99,9 +113,7 @@ def apply_attn(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
         k = apply_rope(k, cos, sin)
         k_cache, v_cache = cache["k"], cache["v"]
         S = k_cache.shape[1]
-        # the reference's dynamic_update_slice clamps the start index into
-        # the cache, so a position at or past max_len writes the last slot
-        slot = min(max(pos, 0), S - 1)
+        slot = _cache_slot(pos, S)
         k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
         v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
         mask = torch.arange(S, device=x.device) <= pos  # valid prefix
@@ -127,7 +139,7 @@ def init_xattn_cache(cfg: ModelConfig, batch: int, mem_len: int, *, device) -> d
 
 
 # ---------------------------------------------------------------------------
-# Multi-head Latent Attention (DeepSeek-V2): parameters and cache
+# Multi-head Latent Attention (DeepSeek-V2; absorbed decode)
 # ---------------------------------------------------------------------------
 def init_mla(gen, cfg: ModelConfig, *, device) -> dict:
     D, H = cfg.d_model, cfg.num_heads
@@ -143,6 +155,63 @@ def init_mla(gen, cfg: ModelConfig, *, device) -> dict:
         "wv_b": dense_init(gen, (kr, H * vd), cfg.pdtype, device=device),
         "wo": dense_init(gen, (H * vd, D), cfg.pdtype, scale=(H * vd) ** -0.5, device=device),
     }
+
+
+def apply_mla(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
+    """MLA: queries through the ``q_lora_rank`` bottleneck, keys and values
+    from the ``kv_lora_rank`` latent ``ckv`` plus one shared RoPE key.
+
+    Decode keeps only ``ckv`` and the RoPE key in the cache and absorbs
+    ``wk_b`` into the query and ``wv_b`` into the output, as the reference
+    does; its logits are made in ``x.dtype`` and widened after their sum.
+    """
+    B, L, D = x.shape
+    H = cfg.num_heads
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kr = cfg.kv_lora_rank
+    scale = (nd + rd) ** -0.5
+
+    q = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"])
+    q = (q @ p["wq_b"].to(x.dtype)).reshape(B, L, H, nd + rd)
+    qn, qr_ = q[..., :nd], q[..., nd:]
+
+    kv_a = x @ p["wkv_a"].to(x.dtype)
+    ckv = rms_norm(kv_a[..., :kr], p["kv_norm"])  # [B, L, kr]
+    k_rope = kv_a[..., kr:].reshape(B, L, 1, rd)
+
+    if cache is None:
+        cos, sin = rope_freqs(ctx.positions, rd, cfg.rope_theta)
+        qr_ = apply_rope(qr_, cos, sin)
+        k_rope = apply_rope(k_rope, cos, sin)
+        kn = (ckv @ p["wk_b"].to(x.dtype)).reshape(B, L, H, nd)
+        v = (ckv @ p["wv_b"].to(x.dtype)).reshape(B, L, H, vd)
+        k = torch.cat([kn, k_rope.expand(B, L, H, rd)], -1)
+        out = _attend(torch.cat([qn, qr_], -1), k, v, cfg, ctx, scale)
+        return out.reshape(B, L, H * vd) @ p["wo"].to(x.dtype), None
+
+    # ---- absorbed decode over the compressed cache -------------------------
+    pos = ctx.pos
+    cos, sin = rope_freqs(torch.full((1, 1), pos, dtype=torch.float32, device=x.device),
+                          rd, cfg.rope_theta)
+    qr_ = apply_rope(qr_, cos, sin)
+    k_rope = apply_rope(k_rope, cos, sin)
+    ckv_cache, kr_cache = cache["ckv"], cache["kr"]
+    S = ckv_cache.shape[1]
+    slot = _cache_slot(pos, S)
+    ckv_cache[:, slot] = ckv[:, 0].to(ckv_cache.dtype)
+    kr_cache[:, slot] = k_rope[:, 0, 0].to(kr_cache.dtype)
+    wk_b = p["wk_b"].to(x.dtype).reshape(kr, H, nd)
+    q_abs = torch.einsum("blhn,khn->blhk", qn, wk_b)  # [B, 1, H, kr]
+    logits = (torch.einsum("blhk,bsk->bhls", q_abs, ckv_cache)
+              + torch.einsum("blhr,bsr->bhls", qr_, kr_cache)).float() * scale
+    mask = torch.arange(S, device=x.device) <= pos
+    logits = logits.masked_fill(~mask, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    out_c = torch.einsum("bhls,bsk->blhk", w.to(ckv_cache.dtype), ckv_cache)
+    wv_b = p["wv_b"].to(x.dtype).reshape(kr, H, vd)
+    out = torch.einsum("blhk,khv->blhv", out_c, wv_b)
+    y = out.reshape(B, 1, H * vd) @ p["wo"].to(x.dtype)
+    return y, {"ckv": ckv_cache, "kr": kr_cache}
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> dict:
@@ -248,17 +317,15 @@ def apply_ffn(p, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # mixers whose apply path is not in this slice
 # ---------------------------------------------------------------------------
-#: mixer (or the MoE FFN) -> the ROADMAP item that ports its apply path
-NOT_PORTED = {
-    "mla": "A9.1", "moe": "A9.1", "mamba": "A9.2", "mlstm": "A9.3", "slstm": "A9.3",
-    "xattn": "A9.4",
-}
+#: mixer -> the ROADMAP item that ports its apply path
+NOT_PORTED = {"mamba": "A9.2", "mlstm": "A9.3", "slstm": "A9.3", "xattn": "A9.4"}
 
 
 def not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"the {kind!r} apply path is not ported to repro_torch yet "
-        f"(ROADMAP item {NOT_PORTED[kind]}); this slice applies 'attn' and the dense FFN")
+        f"(ROADMAP item {NOT_PORTED[kind]}); the port applies 'attn', 'mla', the dense "
+        f"FFN and the MoE")
 
 
 def _refused(kind: str):
@@ -279,7 +346,7 @@ MIXER_INIT = {
 MIXER_APPLY = {
     "attn": apply_attn,
     "xattn": _refused("xattn"),
-    "mla": _refused("mla"),
+    "mla": apply_mla,
     "mamba": _refused("mamba"),
     "mlstm": _refused("mlstm"),
     "slstm": _refused("slstm"),

@@ -1,13 +1,14 @@
-"""Shared model substrate: config, init helpers, primitives, attention, MoE init.
+"""Shared model substrate: config, init helpers, primitives, attention, MoE.
 
 The port's copy of the JAX package's ``models/common.py`` in PyTorch.
 Parameters are tensors drawn from an explicit :class:`torch.Generator` on an
 explicit device; every ``apply`` is a plain function of tensors.  The matrix
 products stay plain ``@``/``torch.einsum`` calls, as the reference leaves
-them to XLA: the language-model path has no hand-written kernel.
-
-Not in this slice: ``apply_moe`` and the ``_perm_gather`` custom gradient
-(ROADMAP item A9.1).
+them to XLA: the language-model path has no hand-written kernel.  The MoE's
+expert products are three batched products over the ``[E, C, D]`` dispatch
+buffer, as in the reference, so that remat ``dots`` (which saves only the
+unbatched ``aten.mm`` outputs) recomputes them as the reference's
+``dots_with_no_batch_dims_saveable`` does.
 """
 
 from __future__ import annotations
@@ -252,7 +253,47 @@ def softmax_cross_entropy(logits, labels, z_loss: float = 1e-4,
 
 
 # ---------------------------------------------------------------------------
-# Mixture of Experts: parameters only (apply_moe is ROADMAP item A9.1)
+# permutation gather whose gradient is also a gather (MoE dispatch primitive)
+# ---------------------------------------------------------------------------
+class _PermGather(torch.autograd.Function):
+    """``out[i] = src[idx[i]]`` whose backward is ALSO a gather (via ``inv_idx``).
+
+    ``src`` [N+1, D] (last row a zero pad for sentinel indices); ``idx`` [M]
+    indices into src; ``inv_idx`` carries the inverse mapping backward needs:
+
+    * ``k_axis == 0``: ``inv_idx`` [N, K] lists the <= K output rows fed by
+      each src row (sentinel M), so backward sums K gathered cotangents;
+    * ``k_axis < 0``: ``inv_idx`` [N] is a plain inverse permutation
+      (sentinel M), so backward is one gather.
+
+    The pad row gets a zero gradient; ``idx`` and ``inv_idx`` get none.
+    """
+
+    @staticmethod
+    def forward(src, idx, inv_idx, k_axis):
+        return src[idx]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        src, _, inv_idx, k_axis = inputs
+        ctx.save_for_backward(inv_idx)
+        ctx.k_axis, ctx.n1 = k_axis, src.shape[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_idx,) = ctx.saved_tensors
+        zero = g.new_zeros((1, g.shape[1]))
+        gpad = torch.cat([g, zero], 0)
+        dsrc = gpad[inv_idx].sum(1) if ctx.k_axis == 0 else gpad[inv_idx]
+        return torch.cat([dsrc, zero], 0)[: ctx.n1], None, None, None
+
+
+def _perm_gather(src, idx, inv_idx, k_axis: int):
+    return _PermGather.apply(src, idx, inv_idx, k_axis)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sort-based dispatch with capacity)
 # ---------------------------------------------------------------------------
 def init_moe(gen: torch.Generator, cfg: ModelConfig, *, device) -> dict:
     E, D, F_ = cfg.num_experts, cfg.d_model, cfg.moe_d_ff or cfg.d_ff
@@ -270,3 +311,99 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, *, device) -> dict:
             "w_out": dense_init(gen, (Fs, D), cfg.pdtype, scale=Fs**-0.5, device=device),
         }
     return p
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig):
+    """The float32 router over tokens ``xt`` [T, D] -> (probs [T, E], top_p,
+    top_e [T, K]): the K largest probabilities, renormalised, and their
+    experts.  ``jax.lax.top_k`` puts equal values in index order, which a
+    stable descending sort keeps (``torch.topk`` does not promise it)."""
+    probs = torch.softmax((xt.float() @ router).float(), dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, : cfg.top_k], top_e[:, : cfg.top_k]
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)  # renormalise
+    return probs, top_p, top_e
+
+
+def moe_slots(top_e: torch.Tensor, cfg: ModelConfig):
+    """The sort-based dispatch of ``top_e`` [T, K] -> (order, keep, slot, C):
+    assignments sorted stably by expert (``order``), their rank within the
+    expert kept below the capacity ``C`` (``keep``), and their row of the
+    ``[E * C]`` buffer (``slot``; every dropped one the sentinel ``E * C``)."""
+    E = cfg.num_experts
+    S = top_e.numel()
+    flat_e = top_e.reshape(S)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    # counted by a scatter, not ``torch.bincount``, whose output size waits
+    # for the largest index on the host
+    counts = torch.zeros(E, dtype=se.dtype, device=se.device).scatter_add_(
+        0, se, torch.ones_like(se))
+    starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
+    rank = torch.arange(S, device=top_e.device) - starts[se]
+    C = max(1, int(cfg.capacity_factor * S / E))
+    keep = rank < C
+    slot = torch.where(keep, se * C + rank, E * C)  # overflow -> dropped row
+    return order, keep, slot, C
+
+
+def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
+    """Top-k token-choice MoE with sort-based dispatch and capacity drop.
+
+    x [B, L, D] -> ([B, L, D], the load-balancing aux loss).  ``moe_hints``
+    constrains the EP placement of the dispatch buffer in the reference:
+    on one device there is nothing to constrain.
+    """
+    B, L, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    cdt = cfg.cdtype
+    T = B * L
+    xt = x.reshape(T, D)
+
+    probs, top_p, top_e = moe_route(p["router"], xt, cfg)
+    # aux load-balancing loss (Switch-style)
+    ones = torch.ones(T * K, dtype=torch.float32, device=x.device)
+    density = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+        0, top_e.reshape(-1), ones) / (T * K)
+    aux = E * torch.sum(density * probs.mean(0))
+
+    order, keep, slot, C = moe_slots(top_e, cfg)
+    S = T * K
+    stok = torch.arange(T, device=x.device).repeat_interleave(K)[order]
+    if cfg.moe_gather_dispatch:
+        # integer index maps; the only repeated index is the sentinel E * C
+        inv_tok = torch.full((E * C + 1,), T, dtype=torch.int64, device=x.device)
+        inv_tok[slot] = stok
+        slot_tk = torch.full((S,), E * C, dtype=torch.int64, device=x.device)
+        slot_tk[order] = slot
+        slot_tk = slot_tk.reshape(T, K)  # token -> its <= K slots
+        inv_flat = torch.full((E * C + 1,), S, dtype=torch.int64, device=x.device)
+        inv_flat[slot] = order
+        xt1 = torch.cat([xt.to(cdt), xt.new_zeros((1, D), dtype=cdt)], 0)
+        buf = _perm_gather(xt1, inv_tok[: E * C], slot_tk, 0).reshape(E, C, D)
+    else:
+        buf = torch.zeros((E * C + 1, D), dtype=cdt, device=x.device)
+        buf = buf.index_put((slot,), xt[stok].to(cdt))
+        buf = buf[: E * C].reshape(E, C, D)
+
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(cdt)))
+    h = h * torch.einsum("ecd,edf->ecf", buf, p["w_in"].to(cdt))
+    y = torch.einsum("ecf,efd->ecd", h, p["w_out"].to(cdt))
+
+    y_flat = y.reshape(E * C, D)
+    if cfg.moe_gather_dispatch:
+        # combine: each token's <= K expert outputs gathered back
+        y1 = torch.cat([y_flat, y_flat.new_zeros((1, D))], 0)
+        z = _perm_gather(y1, slot_tk.reshape(-1), inv_flat[: E * C], -1).reshape(T, K, D)
+        out = (z * top_p[..., None].to(z.dtype)).sum(1)
+    else:
+        sw = top_p.reshape(S)[order]
+        gathered = torch.where(keep[:, None], y_flat[slot.clamp(0, E * C - 1)], 0.0)
+        out = torch.zeros((T, D), dtype=cdt, device=x.device).index_add(
+            0, stok, gathered * sw[:, None].to(cdt))
+
+    if cfg.num_shared_experts:
+        sh = p["shared"]
+        out = out + swiglu(xt.to(cdt), sh["w_gate"].to(cdt), sh["w_in"].to(cdt),
+                           sh["w_out"].to(cdt))
+    return out.reshape(B, L, D), aux

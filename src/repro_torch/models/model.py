@@ -20,9 +20,11 @@ of the whole stack per period in backward); ``decode_step`` indexes them
 period runs under ``torch.utils.checkpoint`` as ``remat``/``remat_policy``
 ask, the counterpart of ``jax.checkpoint`` (:func:`_remat`).  The sharding
 hints (``act_hints``, ``seq_parallel``) have nothing to constrain on one
-device.
-``encode``/``warm_cross_cache`` and the MoE, MLA, Mamba, xLSTM and
-cross-attention apply paths are not in this slice (ROADMAP A9.1-A9.4).
+device.  MoE layers (``"moe" in lp``) replace the FFN and add their
+load-balancing loss to the aux loss that ``forward`` returns, summed over
+the prologue and the periods as the reference sums it; decode drops it.
+``encode``/``warm_cross_cache`` and the Mamba, xLSTM and cross-attention
+apply paths are not ported yet (ROADMAP A9.2-A9.4).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from .blocks import (
     init_xattn_cache,
     not_ported,
 )
-from .common import ModelConfig, embed_init, init_moe, rms_norm
+from .common import ModelConfig, apply_moe, embed_init, init_moe, rms_norm
 
 
 class ParamTree(nn.Module):
@@ -94,11 +96,14 @@ def _at(tree, i: int):
 
 def _stacked(make, n: int):
     """``n`` draws of ``make()`` stacked on a leading axis (the reference's
-    ``jax.vmap`` over an init), each copied into place as it is drawn."""
-    first = make()
-    out = _tree_map(lambda a: a.new_empty((n, *a.shape)), first)
+    ``jax.vmap`` over an init), each copied into place as it is drawn and
+    dropped before the next is drawn."""
+    draw = make()
+    out = _tree_map(lambda a: a.new_empty((n, *a.shape)), draw)
     for i in range(n):
-        _tree_map(lambda o, a: o[i].copy_(a), out, first if i == 0 else make())
+        draw = draw if i == 0 else make()
+        _tree_map(lambda o, a: o[i].copy_(a), out, draw)
+        draw = None
     return out
 
 
@@ -178,7 +183,14 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> ParamTr
 # ---------------------------------------------------------------------------
 # apply
 # ---------------------------------------------------------------------------
+def _add_aux(total, aux):
+    """The running aux loss: ``None`` stands for the reference's float32
+    zero, which adding leaves every sum unchanged."""
+    return aux if total is None else (total if aux is None else total + aux)
+
+
 def _apply_layer(lp, x, cfg: ModelConfig, kind: str, ctx: Ctx, cache):
+    """-> (x, new cache or None, the MoE aux loss or None)."""
     rk = _resolved_kind(cfg, kind)
     y, new_cache = MIXER_APPLY[rk](lp["mixer"], rms_norm(x, lp["ln1"]), cfg, ctx,
                                    cache=cache.get("mix") if cache else None)
@@ -186,21 +198,24 @@ def _apply_layer(lp, x, cfg: ModelConfig, kind: str, ctx: Ctx, cache):
     new_cache = {"mix": new_cache} if new_cache is not None else {}
     if "xmixer" in lp:
         raise not_ported("xattn")
+    aux = None
     if "moe" in lp:
-        raise not_ported("moe")
-    if "ffn" in lp:
+        y, aux = apply_moe(lp["moe"], rms_norm(x, lp["ln2"]), cfg)
+        x = x + y
+    elif "ffn" in lp:
         x = x + apply_ffn(lp["ffn"], rms_norm(x, lp["ln2"]), cfg)
-    return x, (new_cache or None)
+    return x, (new_cache or None), aux
 
 
 def _apply_period(pp, x, cfg: ModelConfig, ctx: Ctx, caches):
-    new_caches = {}
+    new_caches, aux_total = {}, None
     for i, kind in enumerate(cfg.block_pattern):
         c = caches[f"l{i}"] if caches is not None else None
-        x, nc = _apply_layer(pp[f"l{i}"], x, cfg, kind, ctx, c)
+        x, nc, aux = _apply_layer(pp[f"l{i}"], x, cfg, kind, ctx, c)
+        aux_total = _add_aux(aux_total, aux)
         if nc is not None:
             new_caches[f"l{i}"] = nc
-    return x, (new_caches or None)
+    return x, (new_caches or None), aux_total
 
 
 def _remat(fn, cfg: ModelConfig):
@@ -227,18 +242,24 @@ def _run_stack(params, x, cfg: ModelConfig, ctx: Ctx):
     """Train/prefill pass over the prologue and the periods.  The periods are
     checkpointed only while a gradient is recorded, so serving runs them
     as they are."""
+    aux_total = None
     for lp in params.get("prologue", []):
-        x, _ = _apply_layer(lp, x, cfg, "attn", ctx, None)
+        x, _, aux = _apply_layer(lp, x, cfg, "attn", ctx, None)
+        aux_total = _add_aux(aux_total, aux)
 
     def body(h, pp):
-        return _apply_period(pp, h, cfg, ctx, None)[0]
+        h, _, aux = _apply_period(pp, h, cfg, ctx, None)
+        return h, aux
 
     if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
         body = _remat(body, cfg)
     periods = _tree_map(lambda a: a.unbind(0), params["periods"])
     for i in range(cfg.n_periods):
-        x = body(x, _tree_map(lambda slices: slices[i], periods))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = body(x, _tree_map(lambda slices: slices[i], periods))
+        aux_total = _add_aux(aux_total, aux)
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux_total
 
 
 def _head(params, cfg: ModelConfig, x):
@@ -251,8 +272,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             memory: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits [B, L, V] f32, MoE aux loss).
 
-    The aux loss is the MoE load-balancing term, 0 while no MoE layer is
-    applied (ROADMAP A9.1)."""
+    The aux loss is the MoE load-balancing term summed over the MoE layers,
+    a float32 0 in a model without one."""
     B, L = tokens.shape
     x = params["embed"][tokens].to(cfg.cdtype)
     positions = torch.arange(L, device=tokens.device).expand(B, L)
@@ -318,7 +339,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos
     x = params["embed"][tokens].to(cfg.cdtype)
     ctx = Ctx(pos=pos, memory=memory, causal=True)
     for lp, lc in zip(params.get("prologue", []), cache.get("prologue", [])):
-        x, _ = _apply_layer(lp, x, cfg, "attn", ctx, lc)
-    for i in range(cfg.n_periods):
-        x, _ = _apply_period(_at(params["periods"], i), x, cfg, ctx, _at(cache["periods"], i))
+        x = _apply_layer(lp, x, cfg, "attn", ctx, lc)[0]
+    for i in range(cfg.n_periods):  # the MoE aux loss is dropped, as the reference drops it
+        x = _apply_period(_at(params["periods"], i), x, cfg, ctx, _at(cache["periods"], i))[0]
     return _head(params, cfg, x).float(), cache

@@ -19,6 +19,7 @@ seed); its checkpoint resumes at the step the reference's resumes at.  It
 too runs on the card by default and exits 2 on ``--mesh pod|multipod``.
 """
 
+import math
 import os
 import re
 import subprocess
@@ -199,6 +200,16 @@ def test_lm_mode_serves_on_the_cpu(capsys):
     assert len(re.findall(r"\d+", first.split(":")[1])) == 4
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def test_lm_mode_serves_the_moe_archs_on_the_cpu(arch, capsys):
+    code, out = run_port(["--arch", arch, *LM_ARGS, "--tape-device", "cpu"], capsys)
+    assert code == 0
+    served, first = lm_lines(out)
+    assert served.startswith(f"{arch}: 2x4 tokens in ")
+    assert math.isfinite(float(re.search(r"tokens in ([\d.]+)s", served).group(1)))
+    assert len(re.findall(r"\d+", first.split(":")[1])) == 4
+
+
 @pytest.mark.parametrize("arch", ["granite-8b", "qwen2.5-3b"])
 def test_restore_line_matches_reference_launcher(arch, capsys, monkeypatch):
     # the reference's LM mode returns from main() instead of raising SystemExit
@@ -337,6 +348,18 @@ def test_train_launcher_returns_each_steps_record(tmp_path):
     assert run["cfg"].remat_policy == "dots" and run["cfg"].microbatches == 2
     assert run["start"] == 0 and len(run["history"]) == 12 and int(run["opt_state"]["step"]) == 12
     assert all(np.isfinite(h["loss"]) and h["seconds"] > 0 for h in run["history"])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def test_train_launcher_trains_the_moe_archs_on_the_cpu(arch, tmp_path, capsys):
+    code = port_train.main(["--arch", arch, *TRAIN_ARGS[:1], "--steps", "10", *TRAIN_ARGS[3:],
+                            "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    assert code == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == f"mesh: {{'data': 1, 'model': 1}}  arch: {arch}"
+    step = STEP.match(lines[2])
+    assert step and step.group(1) == "10" and lines[3:] == ["done"]
+    assert all(math.isfinite(float(step.group(k))) for k in (2, 3, 4))
 
 
 @pytest.mark.parametrize("args", [["--mesh", "pod"], ["--mesh", "multipod"],

@@ -3,14 +3,15 @@
 Parameter and cache trees must have the reference's names, shapes and dtypes
 for all ten architectures, at reduced size and at full width (the port on
 the ``meta`` device, the reference through ``jax.eval_shape``; neither
-allocates).  On the dense decoders the port runs the reference's weights,
-carried over by :func:`repro_torch.models.convert.load_params` (JAX and
-torch draw different numbers from one seed), in float32: ``forward`` logits
-and step-by-step ``decode_step`` logits must equal the reference's within
+allocates).  On the dense decoders and the two MoE architectures (MLA and
+GQA) the port runs the reference's weights, carried over by
+:func:`repro_torch.models.convert.load_params` (JAX and torch draw different
+numbers from one seed), in float32: ``forward`` logits, its MoE aux loss and
+step-by-step ``decode_step`` logits must equal the reference's within
 ``rtol = atol = 1e-4`` and the greedy tokens of ``make_serve_step`` must be
 the same.  The primitives are held one by one, the cache write past
-``max_len`` must clamp as the reference's, and the mixers this slice does
-not apply must refuse by name.
+``max_len`` must clamp as the reference's, and the mixers the port does not
+apply yet must refuse by name.
 """
 
 import dataclasses
@@ -36,8 +37,9 @@ from repro_torch.serving.serve import make_prefill, make_serve_step
 
 pytestmark = pytest.mark.port
 
-#: the dense decoders, which this slice runs end to end
+#: the dense decoders and the MoE architectures, which the port runs end to end
 DENSE = ["deepseek-coder-33b", "granite-8b", "qwen2.5-3b", "yi-34b"]
+MOE = ["deepseek-v2-236b", "kimi-k2-1t-a32b"]
 #: float32 parity: both frameworks sum the same float32 products in their
 #: own order, over widths of at most 128 and two periods
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -120,9 +122,10 @@ def perturbed(params, seed: int = 5):
     return jax.tree.map(move, params)
 
 
-@pytest.fixture(scope="module", params=DENSE)
+@pytest.fixture(scope="module", params=DENSE + MOE)
 def dense(request):
-    """A dense decoder in float32 in both packages, on the same weights."""
+    """A decoder (dense, or MoE at the config's own capacity factor) in
+    float32 in both packages, on the same weights."""
     arch = request.param
     ref_cfg = dataclasses.replace(ref_reduced(REF_ARCHS[arch]), compute_dtype="float32")
     cfg = dataclasses.replace(reduced(ARCHS[arch]), compute_dtype="float32")
@@ -134,11 +137,13 @@ def dense(request):
 
 
 def test_forward_matches_reference(dense):
-    ref_logits, _ = jax.jit(ref_model.forward, static_argnums=1)(
+    ref_logits, ref_aux = jax.jit(ref_model.forward, static_argnums=1)(
         dense["ref_params"], dense["ref_cfg"], jnp.asarray(dense["tokens"]))
     logits, aux = forward(dense["model"], dense["cfg"], torch.from_numpy(dense["tokens"]))
-    assert logits.dtype == torch.float32 and float(aux) == 0.0
+    assert logits.dtype == torch.float32 and aux.dtype == torch.float32
     np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), **TOL)
+    np.testing.assert_allclose(float(aux), float(ref_aux), **TOL)
+    assert (float(aux) > 0) == (dense["arch"] in MOE)
     prefill = make_prefill(dense["cfg"])(dense["model"], torch.from_numpy(dense["tokens"]))
     assert torch.equal(prefill, logits)
 
@@ -289,13 +294,11 @@ def test_causal_attention_matches_reference(case):
 
 
 # ---------------------------------------------------------------------------
-# what this slice refuses
+# what the port refuses
 # ---------------------------------------------------------------------------
 #: architecture -> the apply path its reduced forward reaches first
 REFUSED = {
-    "deepseek-v2-236b": "mla",
     "jamba-v0.1-52b": "mamba",
-    "kimi-k2-1t-a32b": "moe",
     "llama-3.2-vision-90b": "xattn",
     "seamless-m4t-large-v2": "xattn",
     "xlstm-1.3b": "mlstm",
@@ -312,9 +315,8 @@ def test_unported_mixers_refuse_by_name(arch):
         forward(model, cfg, tokens)
     with pytest.raises(NotImplementedError, match=f"'{kind}'"):
         decode_step(model, cfg, tokens[:, :1], init_cache(cfg, 1, 4, device="cpu"), 0)
-    if kind != "moe":
-        with pytest.raises(NotImplementedError, match=f"'{kind}'"):
-            blocks.MIXER_APPLY[kind](None, None, cfg, blocks.Ctx())
+    with pytest.raises(NotImplementedError, match=f"'{kind}'"):
+        blocks.MIXER_APPLY[kind](None, None, cfg, blocks.Ctx())
 
 
 def test_load_params_refuses_a_mismatched_tree_by_name():

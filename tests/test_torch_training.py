@@ -72,6 +72,7 @@ from repro_torch.training import (
 pytestmark = pytest.mark.port
 
 DENSE = ["deepseek-coder-33b", "granite-8b", "qwen2.5-3b", "yi-34b"]
+MOE = ["deepseek-v2-236b", "kimi-k2-1t-a32b"]
 REMAT = {"off": dict(remat=False, remat_policy="full"), "full": dict(remat=True),
          "dots": dict(remat=True, remat_policy="dots"), "none": dict(remat_policy="none")}
 aten = torch.ops.aten
@@ -92,8 +93,8 @@ def perturbed(params, seed: int = 5):
 
 
 def pair(arch: str, *, periods: int = 2, **overrides):
-    """A reduced dense decoder in float32 in both packages, on the same
-    weights: ``(ref_cfg, ref_params, cfg, port params with gradients on)``."""
+    """A reduced decoder in float32 in both packages, on the same weights:
+    ``(ref_cfg, ref_params, cfg, port params with gradients on)``."""
     kw = dict(compute_dtype="float32", **overrides)
     ref_cfg = dataclasses.replace(ref_reduced(REF_ARCHS[arch], periods=periods), **kw)
     cfg = dataclasses.replace(reduced(ARCHS[arch], periods=periods), **kw)
@@ -213,9 +214,21 @@ def test_adamw_update_matches_reference(case):
 # loss, gradients, remat
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("remat", ["off", "full", "dots"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_loss_and_grads_match_reference(arch, remat):
-    ref_cfg, ref_params, cfg, params = pair(arch, **REMAT[remat])
+    """Loss, MoE aux loss (0 in a dense decoder) and every gradient, the
+    aux loss's included, against ``jax.value_and_grad``."""
+    check_loss_and_grads(*pair(arch, **REMAT[remat]), arch in MOE)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_gather_dispatch_loss_and_grads_match_reference(arch):
+    """The permutation-gather dispatch (its custom backward) through the
+    whole model, under remat ``dots``."""
+    check_loss_and_grads(*pair(arch, moe_gather_dispatch=True, **REMAT["dots"]), True)
+
+
+def check_loss_and_grads(ref_cfg, ref_params, cfg, params, moe: bool):
     tokens = tokens_of(cfg)
     (ref_total, ref_metrics), ref_grads = jax.jit(jax.value_and_grad(
         lambda p, b: ref_train.loss_fn(p, ref_cfg, b), has_aux=True))(
@@ -226,10 +239,12 @@ def test_loss_and_grads_match_reference(arch, remat):
     np.testing.assert_allclose(float(total.detach()), float(ref_total), rtol=1e-5)
     np.testing.assert_allclose(float(metrics["loss"].detach()), float(ref_metrics["loss"]),
                                rtol=1e-5)
-    assert float(metrics["aux_loss"]) == float(ref_metrics["aux_loss"]) == 0.0
+    np.testing.assert_allclose(float(metrics["aux_loss"].detach()),
+                               float(ref_metrics["aux_loss"]), rtol=1e-5)
+    assert (float(metrics["aux_loss"].detach()) > 0) == moe
     assert_leaves_close(dict(zip([n for n, _ in named_leaves(params)], grads)),
                         dict(named_leaves(ref_grads)), rel=1e-5)
-    if remat != "off":  # recomputation repeats the same arithmetic: bit-equal
+    if cfg.remat:  # recomputation repeats the same arithmetic: bit-equal
         cfg_off = dataclasses.replace(cfg, remat=False)
         plain = torch.autograd.grad(loss_fn(params, cfg_off,
                                             {"tokens": torch.from_numpy(tokens)})[0], leaves)
@@ -277,6 +292,32 @@ def test_remat_policies_recompute_what_they_say(remat):
         assert total.grad_fn is None
 
 
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_moe_remat_recomputes_what_it_says(remat):
+    """DeepSeek-V2 reduced: a dense prologue layer (not checkpointed: six
+    MLA products, three FFN products and two attention products) and two
+    MoE periods (six MLA products, the router's, three of the shared expert;
+    two attention products and the experts' three batched products).
+    ``full`` recomputes the periods' products but the last of each (the
+    shared expert's output product), ``dots`` only the batched ones, as the
+    reference's ``dots_with_no_batch_dims_saveable`` saves only unbatched
+    products: so the expert products stay batched."""
+    _, _, cfg, params = pair("deepseek-v2-236b", **REMAT[remat])
+    n = cfg.n_periods
+    tokens = {"tokens": torch.from_numpy(tokens_of(cfg))}
+    with torch.no_grad(), OpCount() as fwd:
+        loss_fn(params, cfg, tokens)
+    mm, bmm = fwd.counts[aten.mm.default], fwd.counts[aten.bmm.default]
+    period_mm, period_bmm = 10 * n, 5 * n
+    assert (mm, bmm) == (9 + period_mm + 1, 2 + period_bmm)
+    with OpCount() as run:
+        total, _ = loss_fn(params, cfg, tokens)
+        torch.autograd.grad(total, [p for _, p in named_leaves(params)])
+    want = {"full": (3 * mm + period_mm - n, 3 * bmm + period_bmm),
+            "dots": (3 * mm, 3 * bmm + period_bmm)}[remat]
+    assert (run.counts[aten.mm.default], run.counts[aten.bmm.default]) == want
+
+
 def test_serving_params_record_no_graph_and_training_params_do():
     cfg = reduced(ARCHS["qwen2.5-3b"])
     served = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -306,10 +347,11 @@ def test_loss_fn_refuses_the_cross_attention_configs_by_name(arch):
 # the train step
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("microbatches", [1, 4])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_train_steps_match_reference(arch, microbatches):
     """Three steps (warmup of 2, so the schedule turns), held after the first
-    and the third; ``metrics`` is the last microbatch's loss in both."""
+    and the third; ``metrics`` is the last microbatch's loss and aux loss in
+    both."""
     ref_cfg, ref_params, cfg, params = pair(arch)
     opt = adamw_init(params)
     ref_state = ref_opt.adamw_init(ref_params)
@@ -327,7 +369,7 @@ def test_train_steps_match_reference(arch, microbatches):
             continue
         assert int(opt["step"]) == int(ref_state["step"]) == n
         assert float(metrics["lr"]) == float(ref_metrics["lr"])
-        for key in ("loss", "grad_norm"):
+        for key in ("loss", "aux_loss", "grad_norm"):
             np.testing.assert_allclose(float(metrics[key]), float(ref_metrics[key]), rtol=1e-5)
         got, want = as_named(params), as_named(ref_params)
         assert list(got) == list(want)
