@@ -37,7 +37,13 @@ timed and profiled); 11b the restore of the whole DeepSeek-V2 and Kimi-K2
 checkpoints from 20 TB cartridges, planned through the CUDA kernels and
 held equal to ``python``; 11c both MoE archs reduced on the card against
 the CPU (forward, decode, routing, greedy tokens, a train step under both
-dispatch modes) and through both launchers.  Every phase fails the run on
+dispatch modes) and through both launchers.  Phase 12 runs the Mamba and
+xLSTM paths: 12a Jamba at full width cut to one period (8 layers) and 12b
+xLSTM-1.3B whole (float32 decode against forward over 512 tokens, two of
+Jamba's Mamba chunks, then bf16 serving, timed and profiled); 12c the
+restore of both whole checkpoints from 20 TB cartridges through the CUDA
+kernels, held equal to ``python``; 12d both archs reduced on the card
+against the CPU and through both launchers.  Every phase fails the run on
 any mismatch.
 
 Usage, from the root of a checkout, on a machine with a CUDA card::
@@ -266,8 +272,42 @@ MOE_TAPE_BYTES = 20 * 10**12
 #: (phase 10b's tolerances), then both launchers on the card
 MOE_ARCHS = ("deepseek-v2-236b", "kimi-k2-1t-a32b")
 MOE_TOL = 1e-4  # rtol = atol, as tests/test_torch_lm_device.py holds them
-MOE_LAUNCHER_RUNS = {"serve": ["-m", "repro_torch.launch.serve", "--reduced"],
+LAUNCHER_RUNS = {"serve": ["-m", "repro_torch.launch.serve", "--reduced"],
                      "train": ["-m", "repro_torch.launch.train", "--reduced", "--steps", "10"]}
+#: phase 12a: Jamba at full width, its depth cut to one period (8 layers: 7
+#: Mamba and 1 attention, MoE of 16 experts on the 4 odd positions):
+#: 13,295,235,072 float32 parameters, 49.53 GiB; two periods would need 95 GiB
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_LAYERS = 8
+JAMBA_PARAMS = 13_295_235_072
+#: 12b: xLSTM-1.3B whole (48 layers, a 7:1 mLSTM to sLSTM period)
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_PARAMS = 1_062_607_184
+#: 12a/12b: the float32 decode-vs-forward check over 512 tokens, two of
+#: Jamba's 256-token Mamba chunks, so the scan carries its state across a
+#: chunk boundary at the published widths (the reference's bound)
+RECURRENT_CHECK = dict(batch=2, seq=512, rel_bound=2e-3)
+#: 12b: xLSTM-1.3B's float32 forward at full width is not determined to the
+#: reference's 2e-3 (one-ulp noise on its parameters moves its logits by up
+#: to 6.7e-3 over 512 tokens; ``tools/recurrent_drift.py card``).  So its
+#: decode is held against its forward in float64, a copy of the parameters
+#: computed in float64 throughout, to the reference's bound; and the float32
+#: decode's distance from that float64 forward must stay within
+#: ``f32_factor`` times the float32 forward's own distance from it
+XLSTM_CHECK = dict(RECURRENT_CHECK, witness="float64", f32_factor=4)
+#: 12c: the whole checkpoints' restore, as 11b plans the MoE ones
+RECURRENT_RESTORE_ARCHS = ("jamba-v0.1-52b", "xlstm-1.3b")
+#: 12d: both archs reduced, cuda against the CPU port, then both launchers;
+#: the reduced archs are 16 recurrent layers deep, where one-ulp noise on
+#: the parameters alone moves a gradient by up to 4.5e-5 of its leaf's
+#: largest element (tests/test_torch_lm_device.py holds them to 5e-4)
+RECURRENT_ARCHS = ("jamba-v0.1-52b", "xlstm-1.3b")
+RECURRENT_GRAD_REL = 5e-4
+#: the training launcher's default sequence is 128 tokens, from which on
+#: the parallel mLSTM gives NaN gradients in the reference and the port
+#: alike (a masked exp(a[s] - amax[t]) that overflows; ROADMAP C), so xLSTM
+#: trains at 64
+LAUNCHER_EXTRA = {("xlstm-1.3b", "train"): ["--seq", "64"]}
 
 def serving_exactness(dev: str) -> None:
     """Phase 6: serve the reference's serving scenarios on ``cuda`` and on
@@ -1029,20 +1069,33 @@ OP_GROUPS = {
         "aten::_index_put_impl_", "aten::index_add_", "aten::index_add", "aten::scatter_add_",
         "aten::where", "aten::clamp", "aten::repeat_interleave", "aten::lt", "aten::sub",
         "aten::gather"),
+    "elementwise (the Mamba conv and state step, the xLSTM gates; also the norms)": (
+        "aten::mul", "aten::add", "aten::mul_", "aten::add_", "aten::addcmul_", "aten::exp",
+        "aten::logaddexp", "aten::silu", "aten::cat", "aten::sigmoid", "aten::tanh",
+        "aten::maximum", "aten::div", "aten::neg", "aten::abs", "aten::clamp_min"),
 }
 
 
-def serve_full_width(phase: str, cfg, dev: str, check_overrides: dict, cut: str = ""):
+def serve_full_width(phase: str, cfg, dev: str, check_overrides: dict, cut: str = "",
+                     check: dict = LM_CHECK):
     """A language model at full width on the card: parameters from a seed,
     float32 decode at every position must reproduce the full-sequence
-    forward (``check_overrides`` on top of float32 compute); then the
-    config's own bf16 compute serves a batch through ``make_serve_step``,
-    timed, with every logit finite, and four steps run under the profiler.
-    Returns the parameters."""
+    forward within ``check``'s bound (``check_overrides`` on top of float32
+    compute, at ``check``'s batch and length).  With a ``float64`` witness
+    the bound holds the float64 decode against the float64 forward, and the
+    float32 decode must stay within ``f32_factor`` times the float32
+    forward's distance from the float64 forward.  Then the config's own bf16
+    compute serves a batch through ``make_serve_step``, timed, with every
+    logit finite, and four steps run under the profiler.  A step's bound
+    reads every float32 parameter once, and reads and writes the recurrent
+    state (every cache leaf but the attention caches) once.  Returns the
+    parameters."""
+    import copy
     import dataclasses
 
     import torch
 
+    from repro_torch.distributed.checkpoint import named_leaves
     from repro_torch.models.model import decode_step, forward, init_cache, init_model
     from repro_torch.serving.serve import make_serve_step
 
@@ -1059,30 +1112,61 @@ def serve_full_width(phase: str, cfg, dev: str, check_overrides: dict, cut: str 
            if cfg.num_experts else "")
     mla = (f", MLA (q rank {cfg.q_lora_rank}, kv rank {cfg.kv_lora_rank})" if cfg.use_mla
            else "")
+    if cfg.is_subquadratic:
+        mla += f", period {'/'.join(cfg.block_pattern)}"
+    if "mamba" in cfg.block_pattern:
+        mla += (f" (Mamba d_state {cfg.mamba_d_state}, d_conv {cfg.mamba_d_conv}, expand "
+                f"{cfg.mamba_expand}, chunk {cfg.mamba_chunk})")
     log(f"phase {phase}: {cfg.arch_id} at full width{cut} ({cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads{mla}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}{moe}): {n_params} parameters, {n_params * 4 / 2**30:.3f} GiB in "
         f"float32, initialised in {time.perf_counter() - t0:.3f} s (peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB)")
 
-    # float32: decode at every position against the full-sequence forward
+    # decode at every position against the full-sequence forward, in float32
+    # (and in float64 where the check has a float64 witness)
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32", **check_overrides)
-    B, L = LM_CHECK["batch"], LM_CHECK["seq"]
+    B, L = check["batch"], check["seq"]
     tokens = torch.randint(0, cfg.vocab_size, (B, L), device=dev,
                            generator=torch.Generator(dev).manual_seed(2))
     t0 = time.perf_counter()
-    full, _ = forward(params, cfg32, tokens)
-    cache = init_cache(cfg32, B, L, device=dev)
-    dec = torch.stack([decode_step(params, cfg32, tokens[:, t : t + 1], cache, t)[0][:, 0]
-                       for t in range(L)], dim=1)
-    rel = float((dec - full).abs().max() / full.abs().max())
-    if not (rel < LM_CHECK["rel_bound"] and bool(torch.isfinite(full).all())):
-        raise SystemExit(f"phase {phase} FAILED: float32 decode != forward, rel {rel}")
-    log(f"phase {phase}: float32 decode at all {L} positions == forward (B={B}"
+
+    def decode_and_forward(model, c):
+        cache = init_cache(c, B, L, device=dev)
+        dec = torch.stack([decode_step(model, c, tokens[:, t : t + 1], cache, t)[0][:, 0]
+                           for t in range(L)], dim=1)
+        return dec, forward(model, c, tokens)[0]
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max())
+
+    dec, full = decode_and_forward(params, cfg32)
+    finite, what, f32 = bool(torch.isfinite(full).all()), "float32", ""
+    if check.get("witness") == "float64":
+        cfg64 = dataclasses.replace(cfg32, compute_dtype="float64", param_dtype="float64")
+        dec64, full64 = decode_and_forward(copy.deepcopy(params).double(), cfg64)
+        what, err = "float64", rel(dec64, full64)
+        e_fwd, e_dec = rel(full, full64), rel(dec, full64)
+        finite &= bool(torch.isfinite(full64).all())
+        f32 = (f"; float32 decode {rel(dec, full):.3e} from the float32 forward, the "
+               f"float32 forward {e_fwd:.3e} and decode {e_dec:.3e} from the float64 "
+               f"forward, decode within {e_dec / max(e_fwd, 1e-30):.2f} <= "
+               f"{check['f32_factor']} x the forward's")
+        if not e_dec <= check["f32_factor"] * e_fwd:
+            raise SystemExit(f"phase {phase} FAILED: the float32 decode is {e_dec} from the "
+                             f"float64 forward, the float32 forward {e_fwd}")
+        del dec64, full64
+    else:
+        err = rel(dec, full)
+    if not (err < check["rel_bound"] and finite):
+        raise SystemExit(f"phase {phase} FAILED: {what} decode != forward, rel {err} (bound "
+                         f"{check['rel_bound']})")
+    log(f"phase {phase}: {what} decode at all {L} positions == forward (B={B}"
         f"{''.join(f', {k} {v}' for k, v in check_overrides.items())}): rel "
-        f"max|dec - full| / max|full| = {rel:.3e} < {LM_CHECK['rel_bound']} "
+        f"max|dec - full| / max|full| = {err:.3e} < {check['rel_bound']}{f32} "
         f"({time.perf_counter() - t0:.3f} s)")
-    del full, dec, cache
+    del full, dec
+    torch.cuda.empty_cache()
 
     # bf16 (the config's compute dtype): a batch served through make_serve_step
     Bs, P, N = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["new"]
@@ -1113,13 +1197,17 @@ def serve_full_width(phase: str, cfg, dev: str, check_overrides: dict, cut: str 
         raise SystemExit(f"phase {phase} FAILED: a bf16 logit is not finite or a token is out "
                          f"of range")
     step_ms = 1e3 * t_decode / N
-    # the least a step must move: every float32 parameter read once
-    bound = n_params * 4 / HBM_BYTES_PER_S * 1e3
+    # the least a step must move: every float32 parameter read once, and the
+    # recurrent state read and written once
+    extra = 2 * sum(t.numel() * t.element_size() for name, t in named_leaves(cache)
+                    if name.rsplit("::", 1)[1] not in ("k", "v", "ckv", "kr"))
+    bound = (n_params * 4 + extra) / HBM_BYTES_PER_S * 1e3
+    state = f" and {extra / 1e9:.3f} GB of recurrent state read and written" if extra else ""
     log(f"phase {phase}: bf16 serving, batch {Bs}: prefill {P - 1} steps in {t_prefill:.3f} s "
         f"({1e3 * t_prefill / (P - 1):.3f} ms a step); decode {N} steps in {t_decode:.3f} s: "
         f"{step_ms:.3f} ms a step, {Bs * N / t_decode:.1f} tok/s; bound of a step (float32 "
-        f"parameters read once) {bound:.3f} ms; peak device memory {peak / 2**30:.3f} GiB; "
-        f"all logits finite; first sequence {out[0, :12].tolist()}")
+        f"parameters read once{state}) {bound:.3f} ms; peak device memory {peak / 2**30:.3f} "
+        f"GiB; all logits finite; first sequence {out[0, :12].tolist()}")
 
     # where a decode step's time goes: four steps under the profiler, its
     # kernel events (device time) apart from its operator events (host)
@@ -1535,8 +1623,41 @@ def moe_serving(dev: str) -> None:
         raise SystemExit(f"phase 11a FAILED: {n_params} parameters, not {MOE_PARAMS}")
 
 
-def moe_restore(dev: str, u_turn_mb: int) -> dict:
-    """Phase 11b: the restore of both whole MoE checkpoints from tape,
+def recurrent_serving(dev: str) -> None:
+    """Phases 12a and 12b: Jamba at full width cut to one period, then
+    xLSTM-1.3B whole (see :func:`serve_full_width`), each checked over 512
+    tokens.  Jamba's check raises the capacity factor to the number of
+    experts, as 11a does, so that nothing drops; its bf16 serving keeps the
+    config's 1.25 (``C = 1`` at batch 8).  xLSTM's check runs against its
+    float64 forward (``XLSTM_CHECK``).  A step's bound adds the recurrent
+    state (Mamba's ``conv`` and ``ssm``; the mLSTM ``C``, ``n`` and ``m``, the
+    sLSTM ``c``, ``n``, ``h`` and ``m``) read and written once."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+
+    for phase, arch, cfg, overrides, cut, check, want in (
+            ("12a", JAMBA_ARCH, dataclasses.replace(ARCHS[JAMBA_ARCH], num_layers=JAMBA_LAYERS),
+             {"capacity_factor": float(ARCHS[JAMBA_ARCH].num_experts)},
+             f", depth cut from {ARCHS[JAMBA_ARCH].num_layers} to {JAMBA_LAYERS} layers (one "
+             f"period)", RECURRENT_CHECK, JAMBA_PARAMS),
+            ("12b", XLSTM_ARCH, ARCHS[XLSTM_ARCH], {}, ", not cut", XLSTM_CHECK, XLSTM_PARAMS)):
+        torch.cuda.empty_cache()
+        log(f"phase {phase}: device memory before: {torch.cuda.memory_allocated() / 2**30:.3f} "
+            f"GiB allocated")
+        params = serve_full_width(phase, cfg, dev, check_overrides=overrides, cut=cut,
+                                  check=check)
+        n_params = sum(p.numel() for p in params.parameters())
+        del params
+        torch.cuda.empty_cache()
+        if n_params != want:
+            raise SystemExit(f"phase {phase} FAILED: {arch}: {n_params} parameters, not {want}")
+
+
+def checkpoint_restore(phase: str, archs, dev: str, u_turn_mb: int) -> dict:
+    """Phases 11b and 12c: the restore of whole checkpoints from tape,
     planned under ``dp`` and ``simpledp`` on the card in float64 tables and
     held equal to ``python``.  The trees hold shapes only (``meta``); the
     U-turn is the paper profile's, in MB, turned into bytes.  Returns the
@@ -1554,7 +1675,7 @@ def moe_restore(dev: str, u_turn_mb: int) -> dict:
 
     cuda = ExecutionContext(backend="cuda", device=dev, numeric_policy="f64")
     libs = {}
-    for arch in MOE_RESTORE_ARCHS:
+    for arch in archs:
         params = init_model(torch.Generator().manual_seed(0), ARCHS[arch], device="meta")
         sizes = [p.numel() for p in params.parameters()]
         lib = TapeLibrary(capacity_per_tape=MOE_TAPE_BYTES, u_turn=u_turn_mb * 10**6)
@@ -1581,26 +1702,28 @@ def moe_restore(dev: str, u_turn_mb: int) -> dict:
         want = plan_restore(lib, shards, consumers, policy=policy,
                             context=ExecutionContext(backend="python"))
         if plain(got) != plain(want) or any(p.backend != "cuda" for p in got):
-            raise SystemExit(f"phase 11b FAILED: {arch} {policy} restore plans on cuda != "
-                             f"python")
+            raise SystemExit(f"phase {phase} FAILED: {arch} {policy} restore plans on cuda "
+                             f"!= python")
         mean = sum(p.total_cost for p in got) / sum(consumers.values())
-        log(f"phase 11b: {arch} whole ({sum(sizes)} parameters, {len(shards)} shards, largest "
+        log(f"phase {phase}: {arch} whole ({sum(sizes)} parameters, {len(shards)} shards, largest "
             f"{4 * max(sizes) / 1e9:.1f} GB) on {len(lib.tapes)} cartridge(s) of "
             f"{MOE_TAPE_BYTES / 1e12:.0f} TB: {policy} mean arrival {mean:.6g}, "
             f"planned on cuda in {1e3 * walls[arch, policy]:.3f} ms wall, == python")
     if launches["far_fold_kernel"] + launches["near_fold_kernel"] == 0 or \
             launches["traceback_kernel"] == 0:
-        raise SystemExit(f"phase 11b FAILED: the restore plans launched {launches}")
-    log(f"phase 11b: launches of the restore plans {launches}")
+        raise SystemExit(f"phase {phase} FAILED: the restore plans launched {launches}")
+    log(f"phase {phase}: launches of the restore plans {launches}")
     return launches
 
 
-def moe_reduced(dev: str) -> None:
-    """Phase 11c: the MoE archs reduced, float32, on the card against the CPU
-    port: forward and its aux loss, every decode step, the greedy tokens,
-    each period's routing (integer: exactly), and one train step's loss, aux
-    loss and gradients under both dispatch modes; then the serve and train
-    launchers on the card, as processes."""
+def reduced_on_the_card(phase: str, archs, dev: str, grad_rel: float) -> None:
+    """Phases 11c and 12d: ``archs`` reduced, float32, on the card against the
+    CPU port: forward and its aux loss, every decode step, the greedy
+    tokens, and one train step's loss, aux loss and gradients (within
+    ``grad_rel`` of each leaf's largest element); in an MoE arch also each
+    period's routing (integer: exactly) and the train step under both
+    dispatch modes.  Then the serve and train launchers on the card, as
+    processes."""
     import copy
     import dataclasses
     import math
@@ -1618,21 +1741,22 @@ def moe_reduced(dev: str) -> None:
     from repro_torch.serving.serve import make_serve_step
     from repro_torch.training import init_train_state, loss_fn
 
-    work = ROOT / "build" / "chip_smoke_moe"
+    work = ROOT / "build" / f"chip_smoke_{phase}"
     shutil.rmtree(work, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(SRC))
     procs = {}
     try:
-        for arch in MOE_ARCHS:  # the launchers run while the in-process checks do
-            for name, args in MOE_LAUNCHER_RUNS.items():
+        for arch in archs:  # the launchers run while the in-process checks do
+            for name, args in LAUNCHER_RUNS.items():
                 cwd = work / f"{arch}-{name}"
                 cwd.mkdir(parents=True)
                 extra = ["--ckpt-dir", str(cwd / "ckpt")] if name == "train" else []
+                extra += LAUNCHER_EXTRA.get((arch, name), [])
                 procs[arch, name] = subprocess.Popen(
                     [sys.executable, *args, "--arch", arch, *extra], cwd=cwd, env=env,
                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
-        for arch in MOE_ARCHS:
+        for arch in archs:
             cfg = dataclasses.replace(reduced(ARCHS[arch]), compute_dtype="float32")
             cpu, _ = init_train_state(torch.Generator().manual_seed(0), cfg, device="cpu")
             cpu.requires_grad_(False)
@@ -1650,18 +1774,21 @@ def moe_reduced(dev: str) -> None:
             err = {k: float((got.cpu() - want).abs().max()) for k, (got, want) in pairs.items()}
             if not all(torch.allclose(got.cpu(), want, rtol=MOE_TOL, atol=MOE_TOL)
                        for got, want in pairs.values()):
-                raise SystemExit(f"phase 11c FAILED: {arch}: cuda != cpu, max abs errors {err}")
+                raise SystemExit(f"phase {phase} FAILED: {arch}: cuda != cpu, max abs errors "
+                                 f"{err}")
             err["decode"] = max(v for k, v in err.items() if k.startswith("decode "))
             # each period's routing of one input, exactly
             x = torch.from_numpy(np.random.default_rng(3).normal(
                 size=(32, cfg.d_model)).astype(np.float32))
-            router = cpu["periods"]["l0"]["moe"]["router"]
-            for i in range(cfg.n_periods):
+            moe = next((f"l{i}" for i in range(len(cfg.block_pattern)) if cfg.is_moe_layer(i)),
+                       None)
+            for i in range(cfg.n_periods if moe else 0):
+                router = cpu["periods"][moe]["moe"]["router"]
                 routed = [(top_e.cpu(), moe_slots(top_e, cfg)[1].cpu()) for top_e in (
                     moe_route(router[i].to(d), x.to(d), cfg)[2] for d in ("cpu", dev))]
                 if not all(torch.equal(a, b) for a, b in zip(*routed)):
-                    raise SystemExit(f"phase 11c FAILED: {arch}: period {i} routes differently "
-                                     f"on cuda")
+                    raise SystemExit(f"phase {phase} FAILED: {arch}: period {i} routes "
+                                     f"differently on cuda")
             # the greedy tokens: 4 teacher-forced, then 8 greedy
             serve, seqs = make_serve_step(cfg), {}
             for d, model in (("cpu", cpu), (dev, card)):
@@ -1672,10 +1799,10 @@ def moe_reduced(dev: str) -> None:
                     seq += [nxt.cpu()] if t + 1 >= 4 else []
                 seqs[d] = torch.cat(seq, 1)
             if not torch.equal(seqs["cpu"], seqs[dev]):
-                raise SystemExit(f"phase 11c FAILED: {arch}: greedy tokens on cuda != cpu")
+                raise SystemExit(f"phase {phase} FAILED: {arch}: greedy tokens on cuda != cpu")
             # one train step's loss, aux loss and gradients, both dispatch modes
             train = {}
-            for gather in (False, True):
+            for gather in (False, True) if moe else (False,):
                 gcfg = dataclasses.replace(cfg, moe_gather_dispatch=gather)
                 toks = torch.from_numpy(np.random.default_rng(11).integers(
                     0, cfg.vocab_size, (8, 16)).astype(np.int32))
@@ -1689,14 +1816,16 @@ def moe_reduced(dev: str) -> None:
                 (tc, ac, gc), (tg, ag, gg) = res["cpu"], res[dev]
                 rel = max(float((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30))
                           for g, w in zip(gg, gc))
-                loss_rel, aux_rel = abs(tg - tc) / abs(tc), abs(ag - ac) / abs(ac)
-                if not (rel <= TRAIN_GRAD_REL and loss_rel <= 1e-5 and aux_rel <= 1e-5):
-                    raise SystemExit(f"phase 11c FAILED: {arch} (gather {gather}): gradients "
+                loss_rel = abs(tg - tc) / abs(tc)
+                aux_rel = abs(ag - ac) / abs(ac) if ac else abs(ag)  # 0 without MoE layers
+                if not (rel <= grad_rel and loss_rel <= 1e-5 and aux_rel <= 1e-5):
+                    raise SystemExit(f"phase {phase} FAILED: {arch} (gather {gather}): gradients "
                                      f"rel {rel}, loss rel {loss_rel}, aux rel {aux_rel}")
                 train[gather] = (loss_rel, aux_rel, rel)
-            log(f"phase 11c: {arch} reduced, float32, cuda vs cpu: forward {err['forward']:.3e}, "
-                f"aux {err['aux']:.3e}, decode {err['decode']:.3e} (max abs), routing of "
-                f"{cfg.n_periods} periods equal, greedy tokens equal; train step "
+            routing = f"routing of {cfg.n_periods} periods equal, " if moe else ""
+            log(f"phase {phase}: {arch} reduced, float32, cuda vs cpu: forward "
+                f"{err['forward']:.3e}, aux {err['aux']:.3e}, decode {err['decode']:.3e} (max "
+                f"abs), {routing}greedy tokens equal; train step "
                 + "; ".join(f"{'gather' if g else 'scatter'} dispatch: loss rel {lr:.3e}, aux "
                             f"rel {ar:.3e}, gradients within {gr:.3e} of each leaf's largest "
                             f"element" for g, (lr, ar, gr) in train.items()))
@@ -1705,10 +1834,10 @@ def moe_reduced(dev: str) -> None:
         for (arch, name), proc in procs.items():
             out, err = proc.communicate(timeout=600)
             if proc.returncode != 0:
-                raise SystemExit(f"phase 11c FAILED: {name} launcher --arch {arch} exited "
+                raise SystemExit(f"phase {phase} FAILED: {name} launcher --arch {arch} exited "
                                  f"{proc.returncode}:\n{err[-3000:]}")
             if name == "serve":
-                line = served_line(out, "11c")
+                line = served_line(out, phase)
                 numbers = re.findall(r"[\d.]+(?=s \()|\d+(?= tok/s)", line)
             else:  # the step line as the launcher prints it: a nan or inf does not match
                 step = re.search(r"^step +10 loss=(\d+\.\d{4}) lr=(\S+) gnorm=(\d+\.\d{2})$",
@@ -1718,9 +1847,10 @@ def moe_reduced(dev: str) -> None:
                     line = ""
             if not line or len(numbers) != 3 - (name == "serve") or \
                     not all(math.isfinite(float(v)) for v in numbers):
-                raise SystemExit(f"phase 11c FAILED: {name} launcher --arch {arch} "
+                raise SystemExit(f"phase {phase} FAILED: {name} launcher --arch {arch} "
                                  f"--reduced printed:\n{out[-2000:]}")
-            log(f"phase 11c: {name} launcher --arch {arch} --reduced on the card: {line}")
+            args = " ".join(["--reduced", *LAUNCHER_EXTRA.get((arch, name), [])])
+            log(f"phase {phase}: {name} launcher --arch {arch} {args} on the card: {line}")
         shutil.rmtree(work, ignore_errors=True)
     finally:  # no process outlives the phase, whatever failed
         for proc in procs.values():
@@ -2280,11 +2410,24 @@ def main() -> int:
     moe_serving(dev)
     phases["11a DeepSeek-V2 at full width (3 layers)"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    path_launches["11b MoE checkpoint restore plans"] = moe_restore(dev, u_half)
+    path_launches["11b MoE checkpoint restore plans"] = checkpoint_restore(
+        "11b", MOE_RESTORE_ARCHS, dev, u_half)
     phases["11b MoE checkpoint restore plans"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    moe_reduced(dev)
+    reduced_on_the_card("11c", MOE_ARCHS, dev, TRAIN_GRAD_REL)
     phases["11c reduced MoE archs, cuda vs cpu, launchers"] = time.perf_counter() - t0
+
+    # ---- phase 12: the Mamba and xLSTM paths ------------------------------------
+    t0 = time.perf_counter()
+    recurrent_serving(dev)
+    phases["12a/12b Jamba (one period) and xLSTM-1.3B at full width"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_launches["12c recurrent checkpoint restore plans"] = checkpoint_restore(
+        "12c", RECURRENT_RESTORE_ARCHS, dev, u_half)
+    phases["12c recurrent checkpoint restore plans"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reduced_on_the_card("12d", RECURRENT_ARCHS, dev, RECURRENT_GRAD_REL)
+    phases["12d reduced Jamba and xLSTM, cuda vs cpu, launchers"] = time.perf_counter() - t0
 
     # the kernels line counts the launches of every path, each path's counts
     # set to 0 just before it and read just after
@@ -2311,7 +2454,7 @@ def main() -> int:
         "name": "ltsp_traceback",
         "route": "cuda",
         "source": "src/repro_torch/kernels/ltsp_dp/csrc/ltsp_traceback.cu",
-        "replaces": "src/repro/kernels/ltsp_dp/ops.py:263",
+        "replaces": "src/repro/kernels/ltsp_dp/ops.py:265",
         "launches": launches["traceback_kernel"],
         "max_abs_err": max_err["traceback"],
         "ms": tb_ms,

@@ -34,9 +34,11 @@ parameters to a simulated tape library and plans their restore with
 shard arrival.  At full width the reference's 4 MB cartridges cannot hold
 the embedding shard, and the archive raises ``tape ... full`` in both
 packages.  One device serves: ``--mesh pod|multipod`` needs the sharding
-slice (ROADMAP A9.6) and exits 2, as does an architecture whose mixers the
-port does not apply yet (Jamba, xLSTM, Llama-3.2-Vision, Seamless: ROADMAP
-A9.2-A9.4).  The MoE architectures (DeepSeek-V2, Kimi-K2) serve.
+slice (ROADMAP A9.6) and exits 2, as does an architecture with
+cross-attention, which the port does not apply yet (Llama-3.2-Vision,
+Seamless: ROADMAP A9.4).  The MoE architectures (DeepSeek-V2, Kimi-K2) and
+the recurrent ones (Jamba, xLSTM: their Mamba, mLSTM and sLSTM states
+decoded in place) serve.
 
 Online tape serving (``--serve-tape-queue``)
 --------------------------------------------

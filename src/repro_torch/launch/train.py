@@ -11,9 +11,12 @@ resume) and printed lines; ``--set k=v`` forwards any ``ModelConfig``
 override (``remat_policy``, ``microbatches``, ``logits_bf16_ce``, ...).  It
 trains on the card (``--device cuda``, the default; without a card it
 raises, and nothing falls back) or where ``--device`` says.  One device
-trains: ``--mesh pod|multipod`` needs the sharding slice of the port and
-exits 2, as does an architecture whose mixers the port does not apply yet
-(ROADMAP A9.2-A9.4); the MoE architectures train, their aux loss weighed in.
+trains: ``--mesh pod|multipod`` needs the sharding slice of the port
+(ROADMAP A9.6) and exits 2, as does an architecture with cross-attention,
+which the port does not apply yet (ROADMAP A9.4); the MoE architectures
+train, their aux loss weighed in, and so do the recurrent ones (Jamba,
+xLSTM).  xLSTM's parallel mLSTM gives NaN gradients from about 128 tokens
+on, as the reference's does.
 A step's time, fed to the straggler monitor, runs until its loss is read
 on the host, so it is the step's time on the device.
 """

@@ -6,13 +6,19 @@ The port's copy of the JAX package's ``models/blocks.py``.  Every mixer has
 that every architecture's parameter tree has the reference's names and
 shapes (the tape archive and its restore plans depend on them).  Of the
 ``apply_<kind>(p, x, cfg, ctx, cache=None) -> (y, new_cache)`` paths the
-port has attention and Multi-head Latent Attention (full sequence and
-single-token decode; MLA decodes absorbed, over its compressed cache) and
-the FFN; the other mixers raise :class:`NotImplementedError` naming
-themselves and the ROADMAP item that ports them.
+port has attention and Multi-head Latent Attention (MLA decodes absorbed,
+over its compressed cache), the Mamba selective scan, the xLSTM cells
+(mLSTM and sLSTM) and the FFN, each over the full sequence and at
+single-token decode; cross-attention raises :class:`NotImplementedError`
+naming itself and the ROADMAP item that ports it.
 
 ``cache is None`` selects the full-sequence path (prefill); otherwise the
-single-token decode path runs and writes the cache in place.
+single-token decode path runs and writes the cache in place: ``decode_step``
+hands back the cache it was given, so a mixer whose state is not written
+into it would decode every token from its initial state.  The recurrent
+mixers update each state from its old value in place (``mul_``/``add_``),
+or compute it whole and ``copy_`` it in; a float64 model keeps their
+states and gates in float64 (:func:`state_dtype`).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .common import (
     ModelConfig,
@@ -31,6 +38,7 @@ from .common import (
     rms_norm,
     rope_freqs,
     swiglu,
+    wide,
 )
 
 
@@ -222,8 +230,14 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> dic
 
 
 # ---------------------------------------------------------------------------
-# Mamba (S6 selective scan): parameters and cache
+# Mamba (S6 selective scan, chunked)
 # ---------------------------------------------------------------------------
+def state_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The recurrent mixers' state and gate dtype: float32, as in the
+    reference, or float64 in a float64 model."""
+    return torch.promote_types(cfg.cdtype, torch.float32)
+
+
 def init_mamba(gen, cfg: ModelConfig, *, device) -> dict:
     D = cfg.d_model
     dI = cfg.mamba_expand * D
@@ -248,12 +262,116 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
     dI = cfg.mamba_expand * cfg.d_model
     return {
         "conv": torch.zeros((batch, cfg.mamba_d_conv - 1, dI), dtype=cfg.cdtype, device=device),
-        "ssm": torch.zeros((batch, dI, cfg.mamba_d_state), dtype=torch.float32, device=device),
+        "ssm": torch.zeros((batch, dI, cfg.mamba_d_state), dtype=state_dtype(cfg),
+                           device=device),
     }
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` at every ``x``.  (``F.softplus``
+    returns ``x`` itself past its threshold of 20, which differs by up to
+    ``exp(-20)``.)"""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _mamba_ssm_inputs(p, u, cfg: ModelConfig):
+    """u [B, L, dI] -> (dA, dBu, C), the selective scan's elements (float32,
+    or float64 in a float64 model).
+
+    ``dt`` is made in ``u``'s dtype and widened after its softplus, as in the
+    reference."""
+    dS = cfg.mamba_d_state
+    dt_rank = p["dt_proj"].shape[0]
+    proj = u @ p["x_proj"].to(u.dtype)
+    dt = wide(_softplus(proj[..., :dt_rank] @ p["dt_proj"].to(u.dtype)
+                   + p["dt_bias"].to(u.dtype)))  # [B, L, dI]
+    Bc = wide(proj[..., dt_rank : dt_rank + dS])  # [B, L, dS]
+    Cc = wide(proj[..., dt_rank + dS :])  # [B, L, dS]
+    A = -torch.exp(p["A_log"].to(dt.dtype))  # [dI, dS]
+    dA = torch.exp(dt[..., None] * A)  # [B, L, dI, dS]
+    dBu = (dt * wide(u))[..., None] * Bc[..., None, :]  # [B, L, dI, dS]
+    return dA, dBu, Cc
+
+
+def _conv1d_causal(u, w, b, state=None):
+    """Depthwise causal conv over ``u`` [B, L, dI] -> (out, new state); the
+    state [B, dC-1, dI] holds the last inputs, so decode streams through it."""
+    dC = w.shape[0]
+    if state is None:
+        pad = torch.zeros((u.shape[0], dC - 1, u.shape[2]), dtype=u.dtype, device=u.device)
+    else:
+        pad = state.to(u.dtype)
+    full = torch.cat([pad, u], dim=1)
+    out = sum(full[:, i : i + u.shape[1]] * w[i].to(u.dtype) for i in range(dC)) \
+        + b.to(u.dtype)
+    new_state = full[:, -(dC - 1) :] if dC > 1 else pad
+    return out, new_state
+
+
+def _scan_chunk(dA, dBu):
+    """Inclusive scan over axis 1 of the pairs ``(dA, dBu)`` [B, Ck, dI, dS]
+    under ``(l, r) -> (r.A * l.A, r.A * l.B + r.B)`` (``l`` the earlier):
+    ``(prod_{s<=t} dA[s], sum_{s<=t} prod_{s<r<=t} dA[r] * dBu[s])``.
+
+    The reference calls ``jax.lax.associative_scan``; this is a Hillis-Steele
+    sweep in ``log2(Ck)`` rounds.  Its order of summation: round ``j``
+    (offset ``d = 2**j``) folds the pair ending at ``t - d`` into the pair
+    ending at ``t`` for every ``t >= d``, so element ``t`` sums the blocks
+    ``[t-2d+1, t-d]`` and ``[t-d+1, t]`` of the previous round, the earlier
+    one scaled by the later one's product.  It differs from the reference's
+    odd-even recursion only in float32 rounding."""
+    d = 1
+    while d < dA.shape[1]:
+        dA, dBu = (torch.cat([dA[:, :d], dA[:, d:] * dA[:, :-d]], dim=1),
+                   torch.cat([dBu[:, :d], dA[:, d:] * dBu[:, :-d] + dBu[:, d:]], dim=1))
+        d *= 2
+    return dA, dBu
+
+
+def apply_mamba(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
+    """Mamba's S6 block: in-projection, causal conv, the selective scan, the
+    gate and the out-projection.
+
+    The full sequence is scanned in chunks of ``cfg.mamba_chunk`` (or the
+    whole sequence if shorter; it must divide the sequence, as the
+    reference asserts): a scan within each chunk (:func:`_scan_chunk`), the
+    state ``h0`` [B, dI, dS] carried across chunks.  Decode takes one step
+    of the recurrence from the cache's ``ssm`` and ``conv`` states and
+    writes both back in place."""
+    B, L, D = x.shape
+    dI = cfg.mamba_expand * D
+    uz = x @ p["in_proj"].to(x.dtype)
+    u, z = uz[..., :dI], uz[..., dI:]
+
+    if cache is None:
+        u, _ = _conv1d_causal(u, p["conv_w"], p["conv_b"])
+        u = F.silu(u)
+        dA, dBu, Cc = _mamba_ssm_inputs(p, u, cfg)
+        Ck = min(cfg.mamba_chunk, L)
+        assert L % Ck == 0, (L, Ck)
+        h = torch.zeros((B, dI, cfg.mamba_d_state), dtype=dA.dtype, device=x.device)
+        ys = []
+        for c in range(0, L, Ck):
+            Acum, Bcum = _scan_chunk(dA[:, c : c + Ck], dBu[:, c : c + Ck])
+            h_all = Acum * h[:, None] + Bcum  # [B, Ck, dI, dS]
+            ys.append(torch.einsum("blds,bls->bld", h_all, Cc[:, c : c + Ck]))
+            h = h_all[:, -1]
+        y = torch.cat(ys, dim=1)
+        y = y.to(x.dtype) + u * p["D_skip"].to(x.dtype)
+    else:
+        u_c, conv_state = _conv1d_causal(u, p["conv_w"], p["conv_b"], cache["conv"])
+        u_c = F.silu(u_c)
+        dA, dBu, Cc = _mamba_ssm_inputs(p, u_c, cfg)
+        h = cache["ssm"].mul_(dA[:, 0]).add_(dBu[:, 0])  # [B, dI, dS], in place
+        y = torch.einsum("bds,bs->bd", h, Cc[:, 0])[:, None]
+        y = y.to(x.dtype) + u_c * p["D_skip"].to(x.dtype)
+        cache["conv"].copy_(conv_state)
+    out = (y * F.silu(z)) @ p["out_proj"].to(x.dtype)
+    return out, cache
+
+
 # ---------------------------------------------------------------------------
-# xLSTM cells: parameters and caches
+# xLSTM cells
 # ---------------------------------------------------------------------------
 def init_mlstm(gen, cfg: ModelConfig, *, device) -> dict:
     D, H, dh = cfg.d_model, cfg.num_heads, cfg.head_dim
@@ -268,12 +386,59 @@ def init_mlstm(gen, cfg: ModelConfig, *, device) -> dict:
     }
 
 
+def apply_mlstm(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
+    """Matrix-memory LSTM [arXiv:2405.04517]: the parallel stabilised form
+    over the full sequence, the O(1) recurrent form with the ``(m, C, n)``
+    state at decode (written back in place), ``rms_norm`` on the output.
+
+    The parallel form computes ``exp(a[s] - amax[t])`` for every ``(t, s)``
+    and masks ``s > t`` after, as the reference does; past about 130 steps
+    the masked entries overflow to ``inf`` (the output does not see them)."""
+    B, L, D = x.shape
+    H, dh = cfg.num_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, L, H, dh)
+    k = (x @ p["wk"].to(x.dtype)).reshape(B, L, H, dh) * dh**-0.5
+    v = (x @ p["wv"].to(x.dtype)).reshape(B, L, H, dh)
+    gates = wide(x @ p["w_if"].to(x.dtype) + p["b_if"].to(x.dtype))
+    i_raw, f_raw = gates[..., :H], gates[..., H:]  # [B, L, H]
+    log_f = -_softplus(-f_raw)  # log sigmoid(f)
+
+    if cache is None:
+        Fc = torch.cumsum(log_f, dim=1)  # [B, L, H]
+        a = i_raw - Fc  # i[s] - F[s]
+        amax = torch.cummax(a, dim=1).values
+        # Dmat[t, s] = exp(F[t]-F[s]+i[s]-m[t]), m[t] = F[t] + amax[t]
+        dmat = torch.exp(a[:, None] - amax[:, :, None])  # [B, t, s, H]
+        t_idx = torch.arange(L, device=x.device)
+        causal = (t_idx[:, None] >= t_idx[None, :])[None, :, :, None]
+        dmat = torch.where(causal, dmat, 0.0)
+        scores = wide(torch.einsum("blhd,bmhd->blmh", q, k)) * dmat
+        norm = torch.maximum(scores.sum(dim=2).abs(), torch.exp(-(Fc + amax)))  # [B, L, H]
+        h = torch.einsum("blmh,bmhd->blhd", (scores / norm[:, :, None]).to(v.dtype), v)
+    else:
+        m0, C0, n0 = cache["m"], cache["C"], cache["n"]
+        lf, ii = log_f[:, 0], i_raw[:, 0]  # [B, H]
+        m1 = torch.maximum(lf + m0, ii)
+        c_f = torch.exp(lf + m0 - m1)[..., None, None]
+        c_i = torch.exp(ii - m1)[..., None, None]
+        m0.copy_(m1)
+        k0, qh = wide(k[:, 0]), wide(q[:, 0])
+        kv = torch.einsum("bhd,bhe->bhde", k0, wide(v[:, 0]))
+        C0.mul_(c_f).addcmul_(c_i, kv)  # c_f * C + c_i * kv, in place
+        n0.mul_(c_f[..., 0]).addcmul_(c_i[..., 0], k0)
+        num = torch.einsum("bhd,bhde->bhe", qh, C0)
+        den = torch.maximum(torch.einsum("bhd,bhd->bh", qh, n0).abs(), torch.exp(-m1))
+        h = (num / den[..., None]).to(x.dtype)[:, None]
+    h = rms_norm(h.reshape(B, -1, H * dh), p["ln_out"])
+    return h @ p["wo"].to(x.dtype), cache
+
+
 def init_mlstm_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
     H, dh = cfg.num_heads, cfg.head_dim
     return {
-        "m": torch.full((batch, H), -1e30, dtype=torch.float32, device=device),
-        "C": torch.zeros((batch, H, dh, dh), dtype=torch.float32, device=device),
-        "n": torch.zeros((batch, H, dh), dtype=torch.float32, device=device),
+        "m": torch.full((batch, H), -1e30, dtype=state_dtype(cfg), device=device),
+        "C": torch.zeros((batch, H, dh, dh), dtype=state_dtype(cfg), device=device),
+        "n": torch.zeros((batch, H, dh), dtype=state_dtype(cfg), device=device),
     }
 
 
@@ -289,12 +454,60 @@ def init_slstm(gen, cfg: ModelConfig, *, device) -> dict:
     }
 
 
+def _slstm_step(p, carry, xt, cfg: ModelConfig):
+    """One sLSTM step -> (new carry, h); ``xt`` [B, 4*H*dh] are the step's
+    pre-projected inputs, ``carry`` the ``(c, n, h, m)`` state [B, H, dh]
+    each.  The recurrent matrices are block-diagonal (one per head and
+    gate), the forget gate is a log-sigmoid and ``m`` stabilises the
+    exponential gates; float32 throughout (float64 in a float64 model)."""
+    H, dh = cfg.num_heads, cfg.head_dim
+    c0, n0, h0, m0 = carry
+    r = p["r"].to(h0.dtype)
+    rec = torch.einsum("bhd,ghde->gbhe", h0, r)  # [4, B, H, dh]
+    pre = xt.reshape(xt.shape[0], 4, H, dh).transpose(0, 1) + rec
+    z = torch.tanh(pre[0])
+    i_t, f_t, o_t = pre[1], pre[2], torch.sigmoid(pre[3])
+    lf = -_softplus(-f_t)  # log sigmoid(f)
+    m1 = torch.maximum(lf + m0, i_t)
+    c1 = torch.exp(lf + m0 - m1) * c0 + torch.exp(i_t - m1) * z
+    n1 = torch.exp(lf + m0 - m1) * n0 + torch.exp(i_t - m1)
+    h1 = o_t * c1 / torch.clamp(n1, min=1e-6)
+    return (c1, n1, h1, m1), h1
+
+
+def apply_slstm(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
+    """Scalar-memory LSTM [arXiv:2405.04517]: the inputs projected once,
+    then :func:`_slstm_step` over the sequence from the zero state (``m``
+    at -1e30), or one step from the cache's state, written back in place."""
+    B, L, D = x.shape
+    H, dh = cfg.num_heads, cfg.head_dim
+    pre = wide(x @ p["w_in"].to(x.dtype) + p["b_in"].to(x.dtype))
+
+    if cache is None:
+        def zeros():
+            return torch.zeros((B, H, dh), dtype=pre.dtype, device=x.device)
+        carry = (zeros(), zeros(), zeros(),
+                 torch.full((B, H, dh), -1e30, dtype=pre.dtype, device=x.device))
+        hs = []
+        for t in range(L):
+            carry, h1 = _slstm_step(p, carry, pre[:, t], cfg)
+            hs.append(h1)
+        h = torch.stack(hs, dim=1).reshape(B, L, H * dh).to(x.dtype)
+    else:
+        carry, h1 = _slstm_step(p, (cache["c"], cache["n"], cache["h"], cache["m"]),
+                                pre[:, 0], cfg)
+        for name, new in zip(("c", "n", "h", "m"), carry):
+            cache[name].copy_(new)
+        h = h1.reshape(B, 1, H * dh).to(x.dtype)
+    return h @ p["wo"].to(x.dtype), cache
+
+
 def init_slstm_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
     H, dh = cfg.num_heads, cfg.head_dim
     def z():
-        return torch.zeros((batch, H, dh), dtype=torch.float32, device=device)
+        return torch.zeros((batch, H, dh), dtype=state_dtype(cfg), device=device)
     return {"c": z(), "n": z(), "h": z(),
-            "m": torch.full((batch, H, dh), -1e30, dtype=torch.float32, device=device)}
+            "m": torch.full((batch, H, dh), -1e30, dtype=state_dtype(cfg), device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -318,14 +531,14 @@ def apply_ffn(p, x, cfg: ModelConfig):
 # mixers whose apply path is not in this slice
 # ---------------------------------------------------------------------------
 #: mixer -> the ROADMAP item that ports its apply path
-NOT_PORTED = {"mamba": "A9.2", "mlstm": "A9.3", "slstm": "A9.3", "xattn": "A9.4"}
+NOT_PORTED = {"xattn": "A9.4"}
 
 
 def not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"the {kind!r} apply path is not ported to repro_torch yet "
-        f"(ROADMAP item {NOT_PORTED[kind]}); the port applies 'attn', 'mla', the dense "
-        f"FFN and the MoE")
+        f"(ROADMAP item {NOT_PORTED[kind]}); the port applies 'attn', 'mla', 'mamba', "
+        f"'mlstm', 'slstm', the dense FFN and the MoE")
 
 
 def _refused(kind: str):
@@ -347,7 +560,7 @@ MIXER_APPLY = {
     "attn": apply_attn,
     "xattn": _refused("xattn"),
     "mla": apply_mla,
-    "mamba": _refused("mamba"),
-    "mlstm": _refused("mlstm"),
-    "slstm": _refused("slstm"),
+    "mamba": apply_mamba,
+    "mlstm": apply_mlstm,
+    "slstm": apply_slstm,
 }

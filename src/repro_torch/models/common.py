@@ -149,11 +149,18 @@ def embed_init(gen: torch.Generator, shape, dtype, *, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in at least float32: the reference's ``astype(float32)`` for
+    the narrower types, while a float64 tensor stays float64 (so that a
+    float64 model computes in float64 throughout)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = wide(x)
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
-    return (x * w.float()).to(dt)
+    return (x * wide(w)).to(dt)
 
 
 def rope_freqs(positions: torch.Tensor, dim: int, theta: float):

@@ -23,8 +23,10 @@ hints (``act_hints``, ``seq_parallel``) have nothing to constrain on one
 device.  MoE layers (``"moe" in lp``) replace the FFN and add their
 load-balancing loss to the aux loss that ``forward`` returns, summed over
 the prologue and the periods as the reference sums it; decode drops it.
-``encode``/``warm_cross_cache`` and the Mamba, xLSTM and cross-attention
-apply paths are not ported yet (ROADMAP A9.2-A9.4).
+The recurrent mixers (Mamba, mLSTM, sLSTM) keep an O(1) state in the
+decode cache and write it in place, as attention writes its KV slot.
+``encode``/``warm_cross_cache`` and the cross-attention apply path are not
+ported yet (ROADMAP A9.4).
 """
 
 from __future__ import annotations
@@ -97,8 +99,12 @@ def _at(tree, i: int):
 def _stacked(make, n: int):
     """``n`` draws of ``make()`` stacked on a leading axis (the reference's
     ``jax.vmap`` over an init), each copied into place as it is drawn and
-    dropped before the next is drawn."""
+    dropped before the next is drawn.  A single draw is stacked as a view of
+    itself, without a copy, so that a period as large as half the card can
+    be stacked."""
     draw = make()
+    if n == 1:
+        return _tree_map(lambda a: a.unsqueeze(0), draw)
     out = _tree_map(lambda a: a.new_empty((n, *a.shape)), draw)
     for i in range(n):
         draw = draw if i == 0 else make()
@@ -331,9 +337,10 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos
     """One decode step -> (logits [B, 1, V] f32, cache).
 
     ``pos`` is the current position (an int, or a 0-d tensor read once on
-    the host).  The attention caches are written in place, at ``pos``
-    clamped into the cache as the reference's ``dynamic_update_slice``
-    clamps it, and the returned cache is ``cache`` itself.
+    the host).  Every cache is written in place: the attention caches at
+    ``pos`` clamped into the cache, as the reference's
+    ``dynamic_update_slice`` clamps it, and the recurrent mixers' states
+    whole.  The returned cache is ``cache`` itself.
     """
     pos = int(pos)
     x = params["embed"][tokens].to(cfg.cdtype)

@@ -165,8 +165,8 @@ def test_int32_guard_failure_raises_without_fallback(capsys):
 
 
 @pytest.mark.parametrize("args", [["--mesh", "pod"], ["--mesh", "multipod"],
-                                  ["--arch", "jamba-v0.1-52b", "--reduced", "--tape-device", "cpu",
-                                   "--tape-backend", "python", "--batch", "1"]])
+                                  ["--arch", "llama-3.2-vision-90b", "--reduced", "--tape-device",
+                                   "cpu", "--tape-backend", "python", "--batch", "1"]])
 def test_lm_modes_exit_nonzero(args, capsys):
     assert port_serve.main(args) == 2
     assert "ROADMAP item A9" in capsys.readouterr().err
@@ -200,14 +200,23 @@ def test_lm_mode_serves_on_the_cpu(capsys):
     assert len(re.findall(r"\d+", first.split(":")[1])) == 4
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
-def test_lm_mode_serves_the_moe_archs_on_the_cpu(arch, capsys):
+def check_lm_mode_serves(arch: str, capsys) -> None:
     code, out = run_port(["--arch", arch, *LM_ARGS, "--tape-device", "cpu"], capsys)
     assert code == 0
     served, first = lm_lines(out)
     assert served.startswith(f"{arch}: 2x4 tokens in ")
     assert math.isfinite(float(re.search(r"tokens in ([\d.]+)s", served).group(1)))
     assert len(re.findall(r"\d+", first.split(":")[1])) == 4
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def test_lm_mode_serves_the_moe_archs_on_the_cpu(arch, capsys):
+    check_lm_mode_serves(arch, capsys)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-1.3b"])
+def test_lm_mode_serves_the_recurrent_archs_on_the_cpu(arch, capsys):
+    check_lm_mode_serves(arch, capsys)
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "qwen2.5-3b"])
@@ -350,8 +359,7 @@ def test_train_launcher_returns_each_steps_record(tmp_path):
     assert all(np.isfinite(h["loss"]) and h["seconds"] > 0 for h in run["history"])
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
-def test_train_launcher_trains_the_moe_archs_on_the_cpu(arch, tmp_path, capsys):
+def check_train_launcher_trains(arch: str, tmp_path, capsys) -> None:
     code = port_train.main(["--arch", arch, *TRAIN_ARGS[:1], "--steps", "10", *TRAIN_ARGS[3:],
                             "--device", "cpu", "--ckpt-dir", str(tmp_path)])
     assert code == 0
@@ -362,9 +370,22 @@ def test_train_launcher_trains_the_moe_archs_on_the_cpu(arch, tmp_path, capsys):
     assert all(math.isfinite(float(step.group(k))) for k in (2, 3, 4))
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def test_train_launcher_trains_the_moe_archs_on_the_cpu(arch, tmp_path, capsys):
+    check_train_launcher_trains(arch, tmp_path, capsys)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-1.3b"])
+def test_train_launcher_trains_the_recurrent_archs_on_the_cpu(arch, tmp_path, capsys):
+    """At ``TRAIN_ARGS``' sequence of 32: from about 128 tokens on, the
+    reference's parallel mLSTM gives NaN gradients, and so does the port
+    (``tests/test_torch_recurrent.py``)."""
+    check_train_launcher_trains(arch, tmp_path, capsys)
+
+
 @pytest.mark.parametrize("args", [["--mesh", "pod"], ["--mesh", "multipod"],
-                                  ["--arch", "jamba-v0.1-52b", "--reduced", "--device", "cpu",
-                                   "--steps", "1"]])
+                                  ["--arch", "llama-3.2-vision-90b", "--reduced", "--device",
+                                   "cpu", "--steps", "1"]])
 def test_train_launcher_exits_2_on_what_the_port_lacks(args, capsys):
     assert port_train.main(args) == 2
     err = capsys.readouterr().err

@@ -3,15 +3,16 @@
 Parameter and cache trees must have the reference's names, shapes and dtypes
 for all ten architectures, at reduced size and at full width (the port on
 the ``meta`` device, the reference through ``jax.eval_shape``; neither
-allocates).  On the dense decoders and the two MoE architectures (MLA and
-GQA) the port runs the reference's weights, carried over by
+allocates).  On the dense decoders, the two MoE architectures (MLA and
+GQA), Jamba (Mamba, attention and MoE) and xLSTM the port runs the
+reference's weights, carried over by
 :func:`repro_torch.models.convert.load_params` (JAX and torch draw different
 numbers from one seed), in float32: ``forward`` logits, its MoE aux loss and
 step-by-step ``decode_step`` logits must equal the reference's within
 ``rtol = atol = 1e-4`` and the greedy tokens of ``make_serve_step`` must be
 the same.  The primitives are held one by one, the cache write past
-``max_len`` must clamp as the reference's, and the mixers the port does not
-apply yet must refuse by name.
+``max_len`` must clamp as the reference's, and the mixer the port does not
+apply yet (cross-attention) must refuse by name.
 """
 
 import dataclasses
@@ -37,9 +38,12 @@ from repro_torch.serving.serve import make_prefill, make_serve_step
 
 pytestmark = pytest.mark.port
 
-#: the dense decoders and the MoE architectures, which the port runs end to end
+#: the dense decoders, the MoE architectures and the recurrent ones (the
+#: Mamba hybrid Jamba, with MoE layers, and xLSTM), which the port runs end
+#: to end
 DENSE = ["deepseek-coder-33b", "granite-8b", "qwen2.5-3b", "yi-34b"]
 MOE = ["deepseek-v2-236b", "kimi-k2-1t-a32b"]
+RECURRENT = ["jamba-v0.1-52b", "xlstm-1.3b"]
 #: float32 parity: both frameworks sum the same float32 products in their
 #: own order, over widths of at most 128 and two periods
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -122,10 +126,10 @@ def perturbed(params, seed: int = 5):
     return jax.tree.map(move, params)
 
 
-@pytest.fixture(scope="module", params=DENSE + MOE)
+@pytest.fixture(scope="module", params=DENSE + MOE + RECURRENT)
 def dense(request):
-    """A decoder (dense, or MoE at the config's own capacity factor) in
-    float32 in both packages, on the same weights."""
+    """A decoder (dense, MoE at the config's own capacity factor, or
+    recurrent) in float32 in both packages, on the same weights."""
     arch = request.param
     ref_cfg = dataclasses.replace(ref_reduced(REF_ARCHS[arch]), compute_dtype="float32")
     cfg = dataclasses.replace(reduced(ARCHS[arch]), compute_dtype="float32")
@@ -143,7 +147,7 @@ def test_forward_matches_reference(dense):
     assert logits.dtype == torch.float32 and aux.dtype == torch.float32
     np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), **TOL)
     np.testing.assert_allclose(float(aux), float(ref_aux), **TOL)
-    assert (float(aux) > 0) == (dense["arch"] in MOE)
+    assert (float(aux) > 0) == (dense["cfg"].num_experts > 0)
     prefill = make_prefill(dense["cfg"])(dense["model"], torch.from_numpy(dense["tokens"]))
     assert torch.equal(prefill, logits)
 
@@ -298,15 +302,15 @@ def test_causal_attention_matches_reference(case):
 # ---------------------------------------------------------------------------
 #: architecture -> the apply path its reduced forward reaches first
 REFUSED = {
-    "jamba-v0.1-52b": "mamba",
     "llama-3.2-vision-90b": "xattn",
     "seamless-m4t-large-v2": "xattn",
-    "xlstm-1.3b": "mlstm",
 }
 
 
 @pytest.mark.parametrize("arch", sorted(REFUSED))
 def test_unported_mixers_refuse_by_name(arch):
+    """Cross-attention (ROADMAP A9.4) refuses by name in ``forward``, in
+    ``decode_step`` and called alone."""
     cfg = reduced(ARCHS[arch])
     model = init_model(cpu_gen(), cfg, device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.int64)
@@ -317,6 +321,15 @@ def test_unported_mixers_refuse_by_name(arch):
         decode_step(model, cfg, tokens[:, :1], init_cache(cfg, 1, 4, device="cpu"), 0)
     with pytest.raises(NotImplementedError, match=f"'{kind}'"):
         blocks.MIXER_APPLY[kind](None, None, cfg, blocks.Ctx())
+
+
+@pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm"])
+def test_recurrent_mixers_are_ported(kind):
+    """The Mamba and xLSTM paths (ROADMAP A9.2, A9.3), refused until they
+    were ported, map to their apply functions; the ``dense`` fixture runs
+    Jamba and xLSTM against the reference."""
+    assert kind not in blocks.NOT_PORTED
+    assert blocks.MIXER_APPLY[kind] is getattr(blocks, f"apply_{kind}")
 
 
 def test_load_params_refuses_a_mismatched_tree_by_name():

@@ -23,7 +23,13 @@ two frameworks do differently:
   reference's own bound between microbatched and whole-batch steps,
   ``tests/test_distributed.py``; at learning rate 3e-4 a step moves an
   element by about 3e-4, so a gradient whose sign flipped would show),
-  ``m`` and ``v`` within 1e-5 of the leaf's largest element.
+  ``m`` and ``v`` within 1e-5 of the leaf's largest element;
+* the reduced Jamba and xLSTM, 16 recurrent layers deep, are held to the
+  looser bounds of ``DEEP_TOLERANCES`` (gradients within 5e-4 of the leaf's
+  largest element, the parameters after a step within 2e-4, still under
+  the ~3e-4 a flipped gradient sign moves an element): their gradients
+  move by up to 4.5e-5 under one-ulp noise on the parameters alone
+  (``tools/recurrent_drift.py grads``).
 
 The remat policies must recompute what they say (counted ``aten`` products),
 serving must record no graph, and the hot-tier files of an optimizer state
@@ -73,6 +79,24 @@ pytestmark = pytest.mark.port
 
 DENSE = ["deepseek-coder-33b", "granite-8b", "qwen2.5-3b", "yi-34b"]
 MOE = ["deepseek-v2-236b", "kimi-k2-1t-a32b"]
+RECURRENT = ["jamba-v0.1-52b", "xlstm-1.3b"]  # Jamba's MoE layers add an aux loss
+#: the bounds of the module docstring, and the looser ones of the reduced
+#: recurrent archs: 16 layers (two 8-layer periods) where the others have
+#: 2-3.  Their gradients are ill-conditioned in the parameters: one-ulp
+#: noise on the parameters alone moves the port's own gradients by 4.4e-5
+#: (Jamba) and 4.5e-5 (xLSTM) of each leaf's largest element, against
+#: 1.8e-6 for Granite-8B (all measured on the CPU by
+#: ``tools/recurrent_drift.py grads``).  Against the reference
+#: they drift by up to 4.0e-5 and 1.25e-4 (gradients), 4.6e-5 (the gradient
+#: norm), 6.6e-5 (parameters after a step) and 1.2e-3 (``v`` after three).
+TOLERANCES = {"grad_rel": 1e-5, "grad_norm_rtol": 1e-5, "param_atol": 2e-5,
+              "moment_rel": 1e-5}
+DEEP_TOLERANCES = {"grad_rel": 5e-4, "grad_norm_rtol": 2e-4, "param_atol": 2e-4,
+                   "moment_rel": 5e-3}
+
+
+def tolerances(arch: str) -> dict:
+    return DEEP_TOLERANCES if arch in RECURRENT else TOLERANCES
 REMAT = {"off": dict(remat=False, remat_policy="full"), "full": dict(remat=True),
          "dots": dict(remat=True, remat_policy="dots"), "none": dict(remat_policy="none")}
 aten = torch.ops.aten
@@ -214,11 +238,12 @@ def test_adamw_update_matches_reference(case):
 # loss, gradients, remat
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("remat", ["off", "full", "dots"])
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_loss_and_grads_match_reference(arch, remat):
-    """Loss, MoE aux loss (0 in a dense decoder) and every gradient, the
-    aux loss's included, against ``jax.value_and_grad``."""
-    check_loss_and_grads(*pair(arch, **REMAT[remat]), arch in MOE)
+    """Loss, MoE aux loss (0 in a model without MoE layers) and every
+    gradient, the aux loss's included, against ``jax.value_and_grad``."""
+    check_loss_and_grads(*pair(arch, **REMAT[remat]), ARCHS[arch].num_experts > 0,
+                         rel=tolerances(arch)["grad_rel"])
 
 
 @pytest.mark.parametrize("arch", MOE)
@@ -228,7 +253,8 @@ def test_gather_dispatch_loss_and_grads_match_reference(arch):
     check_loss_and_grads(*pair(arch, moe_gather_dispatch=True, **REMAT["dots"]), True)
 
 
-def check_loss_and_grads(ref_cfg, ref_params, cfg, params, moe: bool):
+def check_loss_and_grads(ref_cfg, ref_params, cfg, params, moe: bool,
+                         rel: float = TOLERANCES["grad_rel"]):
     tokens = tokens_of(cfg)
     (ref_total, ref_metrics), ref_grads = jax.jit(jax.value_and_grad(
         lambda p, b: ref_train.loss_fn(p, ref_cfg, b), has_aux=True))(
@@ -243,7 +269,7 @@ def check_loss_and_grads(ref_cfg, ref_params, cfg, params, moe: bool):
                                float(ref_metrics["aux_loss"]), rtol=1e-5)
     assert (float(metrics["aux_loss"].detach()) > 0) == moe
     assert_leaves_close(dict(zip([n for n, _ in named_leaves(params)], grads)),
-                        dict(named_leaves(ref_grads)), rel=1e-5)
+                        dict(named_leaves(ref_grads)), rel=rel)
     if cfg.remat:  # recomputation repeats the same arithmetic: bit-equal
         cfg_off = dataclasses.replace(cfg, remat=False)
         plain = torch.autograd.grad(loss_fn(params, cfg_off,
@@ -347,7 +373,7 @@ def test_loss_fn_refuses_the_cross_attention_configs_by_name(arch):
 # the train step
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("microbatches", [1, 4])
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_train_steps_match_reference(arch, microbatches):
     """Three steps (warmup of 2, so the schedule turns), held after the first
     and the third; ``metrics`` is the last microbatch's loss and aux loss in
@@ -369,14 +395,18 @@ def test_train_steps_match_reference(arch, microbatches):
             continue
         assert int(opt["step"]) == int(ref_state["step"]) == n
         assert float(metrics["lr"]) == float(ref_metrics["lr"])
-        for key in ("loss", "aux_loss", "grad_norm"):
+        tol = tolerances(arch)
+        for key in ("loss", "aux_loss"):
             np.testing.assert_allclose(float(metrics[key]), float(ref_metrics[key]), rtol=1e-5)
+        np.testing.assert_allclose(float(metrics["grad_norm"]), float(ref_metrics["grad_norm"]),
+                                   rtol=tol["grad_norm_rtol"])
         got, want = as_named(params), as_named(ref_params)
         assert list(got) == list(want)
         for name, w in want.items():
-            np.testing.assert_allclose(got[name], w, rtol=0, atol=2e-5, err_msg=name)
-        assert_leaves_close(opt["m"], ref_state["m"], rel=1e-5)
-        assert_leaves_close(opt["v"], ref_state["v"], rel=1e-5)
+            np.testing.assert_allclose(got[name], w, rtol=0, atol=tol["param_atol"],
+                                       err_msg=name)
+        assert_leaves_close(opt["m"], ref_state["m"], rel=tol["moment_rel"])
+        assert_leaves_close(opt["v"], ref_state["v"], rel=tol["moment_rel"])
 
 
 @pytest.mark.parametrize("arch", DENSE)
