@@ -43,8 +43,17 @@ xLSTM-1.3B whole (float32 decode against forward over 512 tokens, two of
 Jamba's Mamba chunks, then bf16 serving, timed and profiled); 12c the
 restore of both whole checkpoints from 20 TB cartridges through the CUDA
 kernels, held equal to ``python``; 12d both archs reduced on the card
-against the CPU and through both launchers.  Every phase fails the run on
-any mismatch.
+against the CPU and through both launchers.  Phase 13 runs cross-attention
+and the encoder-decoder path: 13a Llama-3.2-Vision at full width cut to two
+periods (10 layers, two of them ``xattn``) over 1601 random vision
+embeddings and 13b SeamlessM4T-large-v2 whole over 1500 random frames
+through its encoder (float32 decode against warmed cross caches against the
+forward over the memory, then the memory prefill and bf16 serving, timed and
+profiled); 13c the restore of both whole checkpoints from 20 TB cartridges
+through the CUDA kernels, held equal to ``python``; 13d both archs reduced
+on the card against the CPU and through both launchers; 13e SeamlessM4T
+trained at full width through the training launcher's loop.  Every phase
+fails the run on any mismatch.
 
 Usage, from the root of a checkout, on a machine with a CUDA card::
 
@@ -308,6 +317,28 @@ RECURRENT_GRAD_REL = 5e-4
 #: alike (a masked exp(a[s] - amax[t]) that overflows; ROADMAP C), so xLSTM
 #: trains at 64
 LAUNCHER_EXTRA = {("xlstm-1.3b", "train"): ["--seq", "64"]}
+#: phase 13a: Llama-3.2-Vision at full width, its depth cut to two periods
+#: (10 layers: 8 attention and 2 ``xattn``, each with a SwiGLU FFN of width
+#: 28672): 10,657,898,496 float32 parameters, 39.70 GiB; one period would
+#: leave the stacking of the xattn caches over periods untested, the whole
+#: model is 326.6 GiB.  Its memory is 1601 random vision embeddings a row
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_LAYERS = 10
+VLM_PARAMS = 10_657_898_496
+#: 13b: SeamlessM4T-large-v2 whole (a 24-layer encoder over 1500 random
+#: frames, a 24-layer decoder with a cross-attention sub-block in each)
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+SEAMLESS_PARAMS = 2_034_784_256
+#: 13c: both whole checkpoints' restore, as 11b plans the MoE ones; 13d: both
+#: archs reduced, cuda against the CPU port (phase 10b's tolerances), then
+#: both launchers
+CROSS_ARCHS = (VLM_ARCH, SEAMLESS_ARCH)
+#: 13e: Seamless trained at full width through the launcher's loop, steps
+#: 3-10 timed, on random frames: on the reference launcher's zero frames its
+#: 24 encoder layers overflow the first step's gradients to NaN (ROADMAP C)
+TRAIN_SEAMLESS = ["--arch", SEAMLESS_ARCH, "--steps", "10", "--batch", "4", "--seq", "512",
+                  "--ckpt-every", "1000", "--frontend-seed", "0"]
+TRAIN_SEAMLESS_TIMED_FROM = 3
 
 def serving_exactness(dev: str) -> None:
     """Phase 6: serve the reference's serving scenarios on ``cuda`` and on
@@ -1076,6 +1107,65 @@ OP_GROUPS = {
 }
 
 
+def frontend_embeds(cfg, batch: int, device: str, seed: int) -> dict:
+    """The frontend's embeddings a cross-attention arch takes, drawn from a
+    generator seeded ``seed`` on ``device``: ``{"enc_embeds": [B, frames,
+    D]}`` for an enc-dec model, ``{"vision_embeds": [B, tokens, D]}`` for a
+    VLM, ``{}`` for the others (float32)."""
+    import torch
+
+    M = cfg.num_enc_frames if cfg.enc_layers else cfg.num_vision_tokens
+    if not M:
+        return {}
+    embeds = torch.randn((batch, M, cfg.d_model), device=device,
+                         generator=torch.Generator(device).manual_seed(seed))
+    return {"enc_embeds" if cfg.enc_layers else "vision_embeds": embeds}
+
+
+def cross_memory(model, cfg, embeds: dict):
+    """The memory the decoder attends to: the encoder's output over
+    ``enc_embeds``, the ``vision_embeds`` themselves, or ``None``."""
+    from repro_torch.models.model import encode
+
+    if "enc_embeds" in embeds:
+        return encode(model, cfg, embeds["enc_embeds"])
+    return embeds.get("vision_embeds")
+
+
+def warmed_cache(model, cfg, batch: int, max_len: int, memory, device: str) -> dict:
+    """A decode cache, its cross caches filled from ``memory`` (if any)."""
+    from repro_torch.models.model import init_cache, warm_cross_cache
+
+    cache = init_cache(cfg, batch, max_len, device=device)
+    return cache if memory is None else warm_cross_cache(model, cfg, cache, memory)
+
+
+def step_bytes(cfg, params, cache, batch: int) -> dict:
+    """The bytes a decode step must move at the least: the parameters it
+    reads, once (the decoder stack and the head, not the encoder; of an
+    untied embedding only the ``batch`` rows it gathers), the cross K/V
+    caches read once (decode never writes them: the ``"cross"`` leaves and
+    the ``xattn`` layers' ``"mix"``), and the recurrent state read and
+    written once (every other cache leaf but the self-attention caches)."""
+    from repro_torch.distributed.checkpoint import named_leaves
+
+    out = {"params": 0, "cross": 0, "state": 0}
+    for name, t in named_leaves(params):
+        top = name.split("::")[0]
+        if top == "embed" and not cfg.tie_embeddings:
+            out["params"] += batch * cfg.d_model * t.element_size()
+        elif top not in ("encoder", "enc_norm"):
+            out["params"] += t.numel() * t.element_size()
+    for name, t in named_leaves(cache):
+        parts, nbytes = name.split("::"), t.numel() * t.element_size()
+        if "cross" in parts or (parts[0] == "periods"
+                                and cfg.block_pattern[int(parts[1][1:])] == "xattn"):
+            out["cross"] += nbytes
+        elif parts[-1] not in ("k", "v", "ckv", "kr"):
+            out["state"] += 2 * nbytes
+    return out
+
+
 def serve_full_width(phase: str, cfg, dev: str, check_overrides: dict, cut: str = "",
                      check: dict = LM_CHECK):
     """A language model at full width on the card: parameters from a seed,
@@ -1086,17 +1176,22 @@ def serve_full_width(phase: str, cfg, dev: str, check_overrides: dict, cut: str 
     float32 decode must stay within ``f32_factor`` times the float32
     forward's distance from the float64 forward.  Then the config's own bf16
     compute serves a batch through ``make_serve_step``, timed, with every
-    logit finite, and four steps run under the profiler.  A step's bound
-    reads every float32 parameter once, and reads and writes the recurrent
-    state (every cache leaf but the attention caches) once.  Returns the
-    parameters."""
+    logit finite, and four steps run under the profiler.  A cross-attention
+    arch's memory comes from random frontend embeddings (through the encoder
+    of an enc-dec model): both checks decode against cross caches that
+    ``warm_cross_cache`` filled from it, the forward reads it, and the bf16
+    run times its prefill (``encode``, ``warm_cross_cache``) on its own.  A
+    step's bound is :func:`step_bytes` over the card's memory rate.
+    Returns the parameters."""
     import copy
     import dataclasses
 
     import torch
 
     from repro_torch.distributed.checkpoint import named_leaves
-    from repro_torch.models.model import decode_step, forward, init_cache, init_model
+    from repro_torch.models.model import (
+        decode_step, forward, init_cache, init_model, warm_cross_cache,
+    )
     from repro_torch.serving.serve import make_serve_step
 
     if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
@@ -1117,6 +1212,13 @@ def serve_full_width(phase: str, cfg, dev: str, check_overrides: dict, cut: str 
     if "mamba" in cfg.block_pattern:
         mla += (f" (Mamba d_state {cfg.mamba_d_state}, d_conv {cfg.mamba_d_conv}, expand "
                 f"{cfg.mamba_expand}, chunk {cfg.mamba_chunk})")
+    if cfg.num_vision_tokens:
+        mla += f", period {'/'.join(cfg.block_pattern)} over {cfg.num_vision_tokens} vision tokens"
+    if cfg.enc_layers:
+        n_enc = sum(t.numel() for name, t in named_leaves(params)
+                    if name.split("::")[0] in ("encoder", "enc_norm"))
+        mla += (f", a {cfg.enc_layers}-layer encoder over {cfg.num_enc_frames} frames ({n_enc} "
+                f"parameters), a cross-attention sub-block in every decoder layer")
     log(f"phase {phase}: {cfg.arch_id} at full width{cut} ({cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads{mla}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}{moe}): {n_params} parameters, {n_params * 4 / 2**30:.3f} GiB in "
@@ -1132,10 +1234,11 @@ def serve_full_width(phase: str, cfg, dev: str, check_overrides: dict, cut: str 
     t0 = time.perf_counter()
 
     def decode_and_forward(model, c):
-        cache = init_cache(c, B, L, device=dev)
+        memory = cross_memory(model, c, frontend_embeds(c, B, dev, seed=3))
+        cache = warmed_cache(model, c, B, L, memory, dev)
         dec = torch.stack([decode_step(model, c, tokens[:, t : t + 1], cache, t)[0][:, 0]
                            for t in range(L)], dim=1)
-        return dec, forward(model, c, tokens)[0]
+        return dec, forward(model, c, tokens, memory=memory)[0]
 
     def rel(a, b) -> float:
         return float((a - b).abs().max() / b.abs().max())
@@ -1161,7 +1264,10 @@ def serve_full_width(phase: str, cfg, dev: str, check_overrides: dict, cut: str 
     if not (err < check["rel_bound"] and finite):
         raise SystemExit(f"phase {phase} FAILED: {what} decode != forward, rel {err} (bound "
                          f"{check['rel_bound']})")
-    log(f"phase {phase}: {what} decode at all {L} positions == forward (B={B}"
+    memory = (f", decode against the warmed cross caches, forward over the memory of "
+              f"{cfg.num_enc_frames or cfg.num_vision_tokens} rows" if cfg.enc_layers or
+              cfg.num_vision_tokens else "")
+    log(f"phase {phase}: {what} decode at all {L} positions == forward (B={B}{memory}"
         f"{''.join(f', {k} {v}' for k, v in check_overrides.items())}): rel "
         f"max|dec - full| / max|full| = {err:.3e} < {check['rel_bound']}{f32} "
         f"({time.perf_counter() - t0:.3f} s)")
@@ -1177,6 +1283,28 @@ def serve_full_width(phase: str, cfg, dev: str, check_overrides: dict, cut: str 
     finite = torch.ones((), dtype=torch.bool, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    embeds = frontend_embeds(cfg, Bs, dev, seed=4)
+    if embeds:  # the memory prefill, each part timed on its own (its second call)
+        times = {}
+        for _ in range(2):
+            t0 = time.perf_counter()
+            memory = cross_memory(params, cfg, embeds)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            warm_cross_cache(params, cfg, cache, memory)
+            torch.cuda.synchronize()
+            times.setdefault("first", (t1 - t0, time.perf_counter() - t1))
+            times["second"] = (t1 - t0, time.perf_counter() - t1)
+        M = next(iter(embeds.values())).shape[1]
+        what = "encode" if cfg.enc_layers else "the vision embeddings (drawn, no encoder)"
+        log(f"phase {phase}: memory prefill at batch {Bs} x {M} rows: {what} "
+            f"{1e3 * times['second'][0]:.3f} ms, warm_cross_cache "
+            f"{1e3 * times['second'][1]:.3f} ms (first calls {1e3 * times['first'][0]:.3f} and "
+            f"{1e3 * times['first'][1]:.3f} ms); memory finite: "
+            f"{bool(torch.isfinite(memory).all())}")
+        if not bool(torch.isfinite(memory).all()):
+            raise SystemExit(f"phase {phase} FAILED: the memory is not finite")
+        del memory, embeds
     t0 = time.perf_counter()
     for t in range(P - 1):  # teacher-forced prefill, as the launcher does
         _, logits, cache = serve(params, cache, prompts[:, t : t + 1], t)
@@ -1197,17 +1325,21 @@ def serve_full_width(phase: str, cfg, dev: str, check_overrides: dict, cut: str 
         raise SystemExit(f"phase {phase} FAILED: a bf16 logit is not finite or a token is out "
                          f"of range")
     step_ms = 1e3 * t_decode / N
-    # the least a step must move: every float32 parameter read once, and the
-    # recurrent state read and written once
-    extra = 2 * sum(t.numel() * t.element_size() for name, t in named_leaves(cache)
-                    if name.rsplit("::", 1)[1] not in ("k", "v", "ckv", "kr"))
-    bound = (n_params * 4 + extra) / HBM_BYTES_PER_S * 1e3
-    state = f" and {extra / 1e9:.3f} GB of recurrent state read and written" if extra else ""
+    moved = step_bytes(cfg, params, cache, Bs)
+    bound = sum(moved.values()) / HBM_BYTES_PER_S * 1e3
+    parts = [f"{moved['params'] / 1e9:.3f} GB of float32 parameters read once"
+             + ("" if cfg.tie_embeddings else f" (the embedding's {Bs} rows)")
+             + (", not the encoder's" if cfg.enc_layers else "")]
+    if moved["cross"]:
+        parts.append(f"{moved['cross'] / 1e9:.3f} GB of cross K/V caches read once")
+    if moved["state"]:
+        parts.append(f"{moved['state'] / 1e9:.3f} GB of recurrent state read and written")
     log(f"phase {phase}: bf16 serving, batch {Bs}: prefill {P - 1} steps in {t_prefill:.3f} s "
         f"({1e3 * t_prefill / (P - 1):.3f} ms a step); decode {N} steps in {t_decode:.3f} s: "
-        f"{step_ms:.3f} ms a step, {Bs * N / t_decode:.1f} tok/s; bound of a step (float32 "
-        f"parameters read once{state}) {bound:.3f} ms; peak device memory {peak / 2**30:.3f} "
-        f"GiB; all logits finite; first sequence {out[0, :12].tolist()}")
+        f"{step_ms:.3f} ms a step, {Bs * N / t_decode:.1f} tok/s; bound of a step "
+        f"({'; '.join(parts)}) {bound:.3f} ms, the step at {step_ms / bound:.2f}x it; peak "
+        f"device memory {peak / 2**30:.3f} GiB; all logits finite; first sequence "
+        f"{out[0, :12].tolist()}")
 
     # where a decode step's time goes: four steps under the profiler, its
     # kernel events (device time) apart from its operator events (host)
@@ -1420,17 +1552,27 @@ def profile_split(prof, steps: int) -> dict:
 
 
 def train_step_bound_ms(cfg, n_params: int, batch: int, seq: int) -> tuple[float, str, dict]:
-    """The least time a remat-``full`` train step of a dense decoder could
-    take on the card: its products (forward, the periods' forward again,
-    backward twice the forward), the projections and head in bf16 at the
-    tensor cores' peak, the attention scores in float32 off them (both
-    L x L products, as the masked score matrix is computed whole), against
-    the parameters, ``m`` and ``v`` read and written once."""
-    D, dh, L = cfg.d_model, cfg.head_dim, seq
-    layer = D * dh * (cfg.num_heads * 2 + cfg.num_kv_heads * 2) + 3 * D * cfg.d_ff
+    """The least time a remat-``full`` train step of a dense decoder, or of an
+    encoder-decoder, could take on the card: its products (forward, the
+    checkpointed layers' forward again, backward twice the forward), the
+    projections and head in bf16 at the tensor cores' peak, the attention
+    scores in float32 off them (both L x L products, as the masked score
+    matrix is computed whole), against the parameters, ``m`` and ``v`` read
+    and written once.  An encoder-decoder adds its encoder over the frames
+    (the same layer, non-causal M x M scores) and each decoder layer's
+    cross-attention: queries and output of the tokens, keys and values of
+    the frames, L x M scores."""
+    D, dh, L, Hq = cfg.d_model, cfg.head_dim, seq, cfg.num_heads
+    layer = D * dh * (Hq * 2 + cfg.num_kv_heads * 2) + 3 * D * cfg.d_ff
     periods = 2 * batch * L * layer * cfg.num_layers
     head = 2 * batch * L * D * cfg.vocab_size
-    attn = 4 * batch * cfg.num_heads * L * L * dh * cfg.num_layers
+    attn = 4 * batch * Hq * L * L * dh * cfg.num_layers
+    if cfg.enc_layers:
+        M = cfg.num_enc_frames
+        periods += 2 * batch * M * layer * cfg.enc_layers
+        attn += 4 * batch * Hq * M * M * dh * cfg.enc_layers
+        periods += 2 * batch * D * dh * (L * Hq * 2 + M * cfg.num_kv_heads * 2) * cfg.num_layers
+        attn += 4 * batch * Hq * L * M * dh * cfg.num_layers
     flops = {"bf16": 3 * (periods + head) + periods, "float32": 4 * attn,
              "bytes": 6 * 4 * n_params}
     ops_ms = 1e3 * (flops["bf16"] / PEAK_OPS_PER_S["bfloat16"] +
@@ -1439,12 +1581,15 @@ def train_step_bound_ms(cfg, n_params: int, batch: int, seq: int) -> tuple[float
     return max(ops_ms, bytes_ms), "operations" if ops_ms > bytes_ms else "bytes", flops
 
 
-def lm_training(dev: str) -> None:
-    """Phase 10a: Qwen2.5-3B trained at full width through the launcher's
-    loop (``launch.train.train``), 20 steps at batch 4 x 512, no checkpoint.
+def lm_training(phase: str, argv: list[str], timed_from: int, dev: str) -> None:
+    """Phases 10a and 13e: a model trained at full width through the
+    launcher's loop (``launch.train.train``) on ``argv``, no checkpoint.
     Every loss and gradient norm must be finite, the last loss below the
-    first, every parameter leaf moved and the optimizer at step 20; then two
-    more steps run under the profiler."""
+    first, every parameter leaf moved and the optimizer at the last step;
+    then two more steps run under the profiler.  An enc-dec model trains on
+    random frames (``--frontend-seed``); on the launcher's default zero
+    frames one step's gradients are then measured (not checked: they are
+    non-finite in the reference too)."""
     import shutil
     import statistics
 
@@ -1452,13 +1597,14 @@ def lm_training(dev: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    from repro_torch.distributed.checkpoint import named_leaves
     from repro_torch.launch import train as launch_train
     from repro_torch.models.model import init_model
-    from repro_torch.training import OptConfig, make_train_step
+    from repro_torch.training import OptConfig, loss_fn, make_train_step
 
-    work = ROOT / "build" / "chip_smoke_train"
+    work = ROOT / "build" / f"chip_smoke_train_{phase}"
     shutil.rmtree(work, ignore_errors=True)
-    args = launch_train.build_parser().parse_args([*TRAIN_FULL, "--device", dev, "--ckpt-dir",
+    args = launch_train.build_parser().parse_args([*argv, "--device", dev, "--ckpt-dir",
                                                    str(work / "full")])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1471,31 +1617,33 @@ def lm_training(dev: str) -> None:
     losses = [h["loss"] for h in hist]
     finite = all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist)
     if not finite or len(hist) != args.steps or not losses[-1] < losses[0]:
-        raise SystemExit(f"phase 10a FAILED: losses {losses}, grad norms "
+        raise SystemExit(f"phase {phase} FAILED: losses {losses}, grad norms "
                          f"{[h['grad_norm'] for h in hist]}")
     if int(opt["step"]) != args.steps or (work / "full").exists():
-        raise SystemExit(f"phase 10a FAILED: optimizer at step {int(opt['step'])}, or a "
+        raise SystemExit(f"phase {phase} FAILED: optimizer at step {int(opt['step'])}, or a "
                          f"checkpoint was written")
     fresh = init_model(torch.Generator(dev).manual_seed(0), cfg, device=dev)
     still = [name for (name, a), b in zip(params.named_parameters(), fresh.parameters())
              if torch.equal(a, b)]
     del fresh
     if still:
-        raise SystemExit(f"phase 10a FAILED: parameter leaves that did not move: {still}")
-    secs = [h["seconds"] for h in hist[TRAIN_TIMED_FROM - 1:]]
+        raise SystemExit(f"phase {phase} FAILED: parameter leaves that did not move: {still}")
+    secs = [h["seconds"] for h in hist[timed_from - 1:]]
     step_s = statistics.median(secs)
     tokens = args.batch * args.seq
     bound, bound_by, flops = train_step_bound_ms(cfg, n_params, args.batch, args.seq)
-    log(f"phase 10a: {cfg.arch_id} trained at full width ({n_params} parameters, not cut), "
-        f"{args.steps} steps at batch {args.batch} x {args.seq} in {wall:.3f} s with the "
+    frames = (f" over {cfg.num_enc_frames} random frames (--frontend-seed "
+              f"{args.frontend_seed})" if cfg.enc_layers else "")
+    log(f"phase {phase}: {cfg.arch_id} trained at full width ({n_params} parameters, not cut), "
+        f"{args.steps} steps at batch {args.batch} x {args.seq}{frames} in {wall:.3f} s with the "
         f"initialisation; loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad norm "
         f"{hist[0]['grad_norm']:.3f} -> {hist[-1]['grad_norm']:.3f}, every leaf moved, "
         f"optimizer at step {int(opt['step'])}")
-    log(f"phase 10a: steps {TRAIN_TIMED_FROM}-{args.steps}: median {1e3 * step_s:.3f} ms a step "
+    log(f"phase {phase}: steps {timed_from}-{args.steps}: median {1e3 * step_s:.3f} ms a step "
         f"(min {1e3 * min(secs):.3f}, max {1e3 * max(secs):.3f}), {tokens / step_s:.1f} "
         f"tokens/s; first step {1e3 * hist[0]['seconds']:.3f} ms; peak device memory "
         f"{peak / 2**30:.3f} GiB")
-    log(f"phase 10a: bound of a step {bound:.3f} ms ({bound_by}: {flops['bf16']:.4g} FLOP of "
+    log(f"phase {phase}: bound of a step {bound:.3f} ms ({bound_by}: {flops['bf16']:.4g} FLOP of "
         f"bf16 products, {flops['float32']:.4g} of float32 attention products; parameters, m "
         f"and v read and written once, {flops['bytes']:.4g} bytes): the step at "
         f"{1e3 * step_s / bound:.2f}x its bound")
@@ -1505,9 +1653,11 @@ def lm_training(dev: str) -> None:
         step = make_train_step(cfg, OptConfig(learning_rate=args.lr, warmup_steps=20,
                                               total_steps=args.steps + 2))
         rng = np.random.default_rng(1)
-        batches = [{"tokens": torch.from_numpy(np.minimum(
-            rng.zipf(1.2, size=(args.batch, args.seq)), cfg.vocab_size - 1).astype(np.int32)
-        ).to(dev)} for _ in range(2)]
+        gen = (None if args.frontend_seed is None
+               else torch.Generator(dev).manual_seed(args.frontend_seed + 1))
+        batches = [launch_train.train_batch(cfg, np.minimum(
+            rng.zipf(1.2, size=(args.batch, args.seq)), cfg.vocab_size - 1), dev, gen)
+            for _ in range(2)]
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1517,7 +1667,7 @@ def lm_training(dev: str) -> None:
             wall = time.perf_counter() - t0
         split = profile_split(prof, 2)
         per, kern = 1e3 * wall / 2, max(split["kernel_ms"], 1e-9)
-        log(f"phase 10a: profiler, 2 steps: {per:.3f} ms wall and {split['kernel_ms']:.3f} ms "
+        log(f"phase {phase}: profiler, 2 steps: {per:.3f} ms wall and {split['kernel_ms']:.3f} ms "
             f"of kernel time a step ({100 * split['kernel_ms'] / per:.1f}% busy), "
             f"{split['kernels']:.0f} kernels and {split['ops']:.0f} aten operators a step; "
             f"adamw_update {split['adamw_ms']:.3f} ms of kernel time a step "
@@ -1540,7 +1690,16 @@ def lm_training(dev: str) -> None:
             log(f"  kernel {100 * us / 2e3 / kern:5.1f}% "
                 f"{us / 2e3:9.3f} ms/step x{count // 2}: {key[:110]}")
     except RuntimeError as e:  # the profiler is not needed for any check
-        log(f"phase 10a: profiler not measured ({e})")
+        log(f"phase {phase}: profiler not measured ({e})")
+    if cfg.enc_layers:  # the launcher's default zero frames, measured
+        batch = launch_train.train_batch(cfg, np.zeros((args.batch, args.seq), np.int32), dev)
+        names, leaves = zip(*named_leaves(params))
+        grads = torch.autograd.grad(loss_fn(params, cfg, batch)[0], leaves)
+        bad = [name for name, g in zip(names, grads) if not bool(torch.isfinite(g).all())]
+        log(f"phase {phase}: on the launcher's default zero frames one step's gradients are "
+            f"non-finite in {len(bad)} of {len(names)} leaves {bad[:6]} (every encoder layer "
+            f"sees zero rows; the reference's are non-finite too)")
+        del grads
     del params, opt, run
     torch.cuda.empty_cache()
 
@@ -1656,8 +1815,34 @@ def recurrent_serving(dev: str) -> None:
             raise SystemExit(f"phase {phase} FAILED: {arch}: {n_params} parameters, not {want}")
 
 
+def cross_serving(dev: str) -> None:
+    """Phases 13a and 13b: Llama-3.2-Vision at full width cut to two periods,
+    then SeamlessM4T-large-v2 whole (see :func:`serve_full_width`), each
+    checked at ``LM_CHECK``'s batch and length against its memory: random
+    vision embeddings, or random frames through the encoder."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+
+    for phase, cfg, cut, want in (
+            ("13a", dataclasses.replace(ARCHS[VLM_ARCH], num_layers=VLM_LAYERS),
+             f", depth cut from {ARCHS[VLM_ARCH].num_layers} to {VLM_LAYERS} layers (two "
+             f"periods)", VLM_PARAMS),
+            ("13b", ARCHS[SEAMLESS_ARCH], ", not cut", SEAMLESS_PARAMS)):
+        torch.cuda.empty_cache()
+        params = serve_full_width(phase, cfg, dev, check_overrides={}, cut=cut)
+        n_params = sum(p.numel() for p in params.parameters())
+        del params
+        torch.cuda.empty_cache()
+        if n_params != want:
+            raise SystemExit(f"phase {phase} FAILED: {cfg.arch_id}: {n_params} parameters, not "
+                             f"{want}")
+
+
 def checkpoint_restore(phase: str, archs, dev: str, u_turn_mb: int) -> dict:
-    """Phases 11b and 12c: the restore of whole checkpoints from tape,
+    """Phases 11b, 12c and 13c: the restore of whole checkpoints from tape,
     planned under ``dp`` and ``simpledp`` on the card in float64 tables and
     held equal to ``python``.  The trees hold shapes only (``meta``); the
     U-turn is the paper profile's, in MB, turned into bytes.  Returns the
@@ -1717,13 +1902,15 @@ def checkpoint_restore(phase: str, archs, dev: str, u_turn_mb: int) -> dict:
 
 
 def reduced_on_the_card(phase: str, archs, dev: str, grad_rel: float) -> None:
-    """Phases 11c and 12d: ``archs`` reduced, float32, on the card against the
-    CPU port: forward and its aux loss, every decode step, the greedy
+    """Phases 11c, 12d and 13d: ``archs`` reduced, float32, on the card against
+    the CPU port: forward and its aux loss, every decode step, the greedy
     tokens, and one train step's loss, aux loss and gradients (within
     ``grad_rel`` of each leaf's largest element); in an MoE arch also each
     period's routing (integer: exactly) and the train step under both
-    dispatch modes.  Then the serve and train launchers on the card, as
-    processes."""
+    dispatch modes; a cross-attention arch takes random frontend embeddings
+    (its encoder's output held too), decodes against warmed cross caches and
+    trains on a batch that carries them.  Then the serve and train launchers
+    on the card, as processes."""
     import copy
     import dataclasses
     import math
@@ -1737,7 +1924,7 @@ def reduced_on_the_card(phase: str, archs, dev: str, grad_rel: float) -> None:
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.distributed.checkpoint import named_leaves
     from repro_torch.models.common import moe_route, moe_slots
-    from repro_torch.models.model import decode_step, forward, init_cache
+    from repro_torch.models.model import decode_step, forward
     from repro_torch.serving.serve import make_serve_step
     from repro_torch.training import init_train_state, loss_fn
 
@@ -1763,10 +1950,17 @@ def reduced_on_the_card(phase: str, archs, dev: str, grad_rel: float) -> None:
             card = copy.deepcopy(cpu).to(dev)
             tokens = torch.from_numpy(np.random.default_rng(11).integers(
                 0, cfg.vocab_size, (2, 16)).astype(np.int32))
-            pairs = {"forward": (forward(card, cfg, tokens.to(dev)), forward(cpu, cfg, tokens))}
+            embeds = frontend_embeds(cfg, 2, "cpu", seed=13)
+            mems = {d: cross_memory(m, cfg, {k: v.to(d) for k, v in embeds.items()})
+                    for d, m in ((dev, card), ("cpu", cpu))}
+            pairs = {"forward": (forward(card, cfg, tokens.to(dev), memory=mems[dev]),
+                                 forward(cpu, cfg, tokens, memory=mems["cpu"]))}
             pairs["aux"] = (pairs["forward"][0][1], pairs["forward"][1][1])
             pairs["forward"] = (pairs["forward"][0][0], pairs["forward"][1][0])
-            caches = init_cache(cfg, 2, 16, device=dev), init_cache(cfg, 2, 16, device="cpu")
+            if cfg.enc_layers:
+                pairs["encode"] = (mems[dev], mems["cpu"])
+            caches = (warmed_cache(card, cfg, 2, 16, mems[dev], dev),
+                      warmed_cache(cpu, cfg, 2, 16, mems["cpu"], "cpu"))
             for t in range(16):
                 pairs[f"decode {t}"] = (
                     decode_step(card, cfg, tokens[:, t : t + 1].to(dev), caches[0], t)[0],
@@ -1792,7 +1986,8 @@ def reduced_on_the_card(phase: str, archs, dev: str, grad_rel: float) -> None:
             # the greedy tokens: 4 teacher-forced, then 8 greedy
             serve, seqs = make_serve_step(cfg), {}
             for d, model in (("cpu", cpu), (dev, card)):
-                cache, tok, seq = init_cache(cfg, 2, 12, device=d), tokens[:, :1].to(d), []
+                cache = warmed_cache(model, cfg, 2, 12, mems[d], d)
+                tok, seq = tokens[:, :1].to(d), []
                 for t in range(12):
                     nxt, _, cache = serve(model, cache, tok, t)
                     tok = tokens[:, t + 1 : t + 2].to(d) if t + 1 < 4 else nxt
@@ -1804,12 +1999,14 @@ def reduced_on_the_card(phase: str, archs, dev: str, grad_rel: float) -> None:
             train = {}
             for gather in (False, True) if moe else (False,):
                 gcfg = dataclasses.replace(cfg, moe_gather_dispatch=gather)
-                toks = torch.from_numpy(np.random.default_rng(11).integers(
-                    0, cfg.vocab_size, (8, 16)).astype(np.int32))
+                batch = {"tokens": torch.from_numpy(np.random.default_rng(11).integers(
+                    0, cfg.vocab_size, (8, 16)).astype(np.int32)),
+                    **frontend_embeds(cfg, 8, "cpu", seed=14)}
                 res = {}
                 for d, model in (("cpu", cpu), (dev, card)):
                     model.requires_grad_(True)
-                    total, metrics = loss_fn(model, gcfg, {"tokens": toks.to(d)})
+                    total, metrics = loss_fn(model, gcfg,
+                                             {k: v.to(d) for k, v in batch.items()})
                     grads = torch.autograd.grad(total, [p for _, p in named_leaves(model)])
                     res[d] = (float(total.detach()), float(metrics["aux_loss"].detach()), grads)
                     model.requires_grad_(False)
@@ -1823,7 +2020,10 @@ def reduced_on_the_card(phase: str, archs, dev: str, grad_rel: float) -> None:
                                      f"rel {rel}, loss rel {loss_rel}, aux rel {aux_rel}")
                 train[gather] = (loss_rel, aux_rel, rel)
             routing = f"routing of {cfg.n_periods} periods equal, " if moe else ""
-            log(f"phase {phase}: {arch} reduced, float32, cuda vs cpu: forward "
+            memory = (f" over {next(iter(embeds.values())).shape[1]} random frontend rows"
+                      + (f" (encoder output {err['encode']:.3e})" if cfg.enc_layers else "")
+                      + ", decode against warmed cross caches" if embeds else "")
+            log(f"phase {phase}: {arch} reduced, float32, cuda vs cpu{memory}: forward "
                 f"{err['forward']:.3e}, aux {err['aux']:.3e}, decode {err['decode']:.3e} (max "
                 f"abs), {routing}greedy tokens equal; train step "
                 + "; ".join(f"{'gather' if g else 'scatter'} dispatch: loss rel {lr:.3e}, aux "
@@ -2396,7 +2596,7 @@ def main() -> int:
 
     # ---- phase 10: training ---------------------------------------------------
     t0 = time.perf_counter()
-    lm_training(dev)
+    lm_training("10a", TRAIN_FULL, TRAIN_TIMED_FROM, dev)
     phases["10a Qwen2.5-3B trained at full width"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     reduced_training(dev)
@@ -2428,6 +2628,23 @@ def main() -> int:
     t0 = time.perf_counter()
     reduced_on_the_card("12d", RECURRENT_ARCHS, dev, RECURRENT_GRAD_REL)
     phases["12d reduced Jamba and xLSTM, cuda vs cpu, launchers"] = time.perf_counter() - t0
+
+    # ---- phase 13: cross-attention and the encoder-decoder path -----------------
+    t0 = time.perf_counter()
+    cross_serving(dev)
+    phases["13a/13b Llama-3.2-Vision (2 periods) and SeamlessM4T at full width"] = \
+        time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_launches["13c cross-attention checkpoint restore plans"] = checkpoint_restore(
+        "13c", CROSS_ARCHS, dev, u_half)
+    phases["13c cross-attention checkpoint restore plans"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reduced_on_the_card("13d", CROSS_ARCHS, dev, TRAIN_GRAD_REL)
+    phases["13d reduced Llama-3.2-Vision and SeamlessM4T, cuda vs cpu, launchers"] = \
+        time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm_training("13e", TRAIN_SEAMLESS, TRAIN_SEAMLESS_TIMED_FROM, dev)
+    phases["13e SeamlessM4T trained at full width"] = time.perf_counter() - t0
 
     # the kernels line counts the launches of every path, each path's counts
     # set to 0 just before it and read just after

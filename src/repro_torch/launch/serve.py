@@ -34,11 +34,12 @@ parameters to a simulated tape library and plans their restore with
 shard arrival.  At full width the reference's 4 MB cartridges cannot hold
 the embedding shard, and the archive raises ``tape ... full`` in both
 packages.  One device serves: ``--mesh pod|multipod`` needs the sharding
-slice (ROADMAP A9.6) and exits 2, as does an architecture with
-cross-attention, which the port does not apply yet (Llama-3.2-Vision,
-Seamless: ROADMAP A9.4).  The MoE architectures (DeepSeek-V2, Kimi-K2) and
-the recurrent ones (Jamba, xLSTM: their Mamba, mLSTM and sLSTM states
-decoded in place) serve.
+slice (ROADMAP A9.6) and exits 2.  Every architecture serves: the MoE ones
+(DeepSeek-V2, Kimi-K2), the recurrent ones (Jamba, xLSTM: their Mamba,
+mLSTM and sLSTM states decoded in place) and the two with cross-attention
+(Llama-3.2-Vision, Seamless), which decode against the zero cross caches
+``init_cache`` gives, as the reference launcher does: it warms no cross
+cache.
 
 Online tape serving (``--serve-tape-queue``)
 --------------------------------------------
@@ -195,19 +196,15 @@ def _serve_lm(args) -> int:
     serve = make_serve_step(cfg)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), device=device,
                             generator=torch.Generator(device).manual_seed(1))
-    try:
-        for t in range(args.prompt_len - 1):  # teacher-forced prefill
-            _, _, cache = serve(params, cache, prompts[:, t : t + 1], t)
-        tok = prompts[:, -1:]
-        t0 = time.time()
-        outs = []
-        for t in range(args.new_tokens):
-            tok, _, cache = serve(params, cache, tok, args.prompt_len - 1 + t)
-            outs.append(tok)
-        first = torch.cat(outs, 1)[0].cpu()  # waits for the last step
-    except NotImplementedError as e:
-        print(f"{cfg.arch_id}: {e}", file=sys.stderr)
-        return 2
+    for t in range(args.prompt_len - 1):  # teacher-forced prefill
+        _, _, cache = serve(params, cache, prompts[:, t : t + 1], t)
+    tok = prompts[:, -1:]
+    t0 = time.time()
+    outs = []
+    for t in range(args.new_tokens):
+        tok, _, cache = serve(params, cache, tok, args.prompt_len - 1 + t)
+        outs.append(tok)
+    first = torch.cat(outs, 1)[0].cpu()  # waits for the last step
     dt = time.time() - t0
     print(f"{cfg.arch_id}: {args.batch}x{args.new_tokens} tokens in {dt:.2f}s "
           f"({args.batch*args.new_tokens/dt:.0f} tok/s)")

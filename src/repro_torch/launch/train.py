@@ -12,11 +12,17 @@ override (``remat_policy``, ``microbatches``, ``logits_bf16_ce``, ...).  It
 trains on the card (``--device cuda``, the default; without a card it
 raises, and nothing falls back) or where ``--device`` says.  One device
 trains: ``--mesh pod|multipod`` needs the sharding slice of the port
-(ROADMAP A9.6) and exits 2, as does an architecture with cross-attention,
-which the port does not apply yet (ROADMAP A9.4); the MoE architectures
-train, their aux loss weighed in, and so do the recurrent ones (Jamba,
-xLSTM).  xLSTM's parallel mLSTM gives NaN gradients from about 128 tokens
-on, as the reference's does.
+(ROADMAP A9.6) and exits 2.  Every architecture trains: the MoE ones with
+their aux loss weighed in, the recurrent ones (Jamba, xLSTM), and the two
+with cross-attention, whose batches carry zero frontend embeddings as the
+reference's do (Seamless's ``enc_embeds`` through its encoder,
+Llama-3.2-Vision's ``vision_embeds``).  On zero frames every encoder layer
+sees zero rows, where ``rms_norm``'s gradient is ``1/sqrt(eps)`` times its
+input's: Seamless's 24 encoder layers overflow its gradients to NaN in the
+first step, the reference's too.  ``--frontend-seed N``, the port's own
+flag, draws the embeddings from a normal distribution instead (a generator
+seeded ``N`` on the device).  xLSTM's parallel mLSTM gives NaN gradients
+from about 128 tokens on, as the reference's does.
 A step's time, fed to the straggler monitor, runs until its loss is read
 on the host, so it is the step's time on the device.
 """
@@ -49,7 +55,7 @@ MESH_MESSAGE = (
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The reference launcher's flags, plus ``--device``."""
+    """The reference launcher's flags, plus ``--device`` and ``--frontend-seed``."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="granite-8b", choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true", help="CPU-scale config")
@@ -66,6 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--set", nargs="*", default=None, metavar="K=V")
     ap.add_argument("--device", default="cuda", help="torch device of the model")
+    ap.add_argument("--frontend-seed", type=int, default=None,
+                    help="draw the frontend embeddings of a cross-attention architecture "
+                         "from a normal distribution seeded so, not the reference's zeros")
     return ap
 
 
@@ -78,6 +87,26 @@ def make_config(args):
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+def train_batch(cfg, tokens: np.ndarray, device,
+                gen: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+    """A batch of ``tokens`` ``[B, L]`` on ``device``; a cross-attention
+    architecture's also carries frontend embeddings in the compute dtype:
+    Seamless's ``enc_embeds`` ``[B, num_enc_frames, D]``, Llama-3.2-Vision's
+    ``vision_embeds`` ``[B, num_vision_tokens, D]``.  They are zeros, as the
+    reference launcher's, or drawn from ``gen`` (a generator on
+    ``device``)."""
+    B = tokens.shape[0]
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device)}
+    for name, rows in (("enc_embeds", cfg.enc_layers and cfg.num_enc_frames),
+                       ("vision_embeds", cfg.num_vision_tokens)):
+        if not rows:
+            continue
+        shape = (B, rows, cfg.d_model)
+        batch[name] = (torch.zeros(shape, dtype=cfg.cdtype, device=device) if gen is None else
+                       torch.randn(shape, generator=gen, device=device).to(cfg.cdtype))
+    return batch
 
 
 def train(args) -> dict:
@@ -105,11 +134,13 @@ def train(args) -> dict:
         print(f"resumed from step {start}")
 
     rng = np.random.default_rng(0)
+    frontend = (None if args.frontend_seed is None
+                else torch.Generator(device).manual_seed(args.frontend_seed))
     monitor = StragglerMonitor()
     history = []
     for i in range(start, args.steps):
         tokens = np.minimum(rng.zipf(1.2, size=(args.batch, args.seq)), cfg.vocab_size - 1)
-        batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device)}
+        batch = train_batch(cfg, tokens, device, frontend)
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
@@ -135,11 +166,7 @@ def main(argv=None) -> int:
     if args.mesh != "auto":
         print(MESH_MESSAGE.format(mesh=args.mesh), file=sys.stderr)
         return 2
-    try:
-        train(args)
-    except NotImplementedError as e:
-        print(f"{args.arch}: {e}", file=sys.stderr)
-        return 2
+    train(args)
     return 0
 
 

@@ -6,11 +6,11 @@ The port's copy of the JAX package's ``models/blocks.py``.  Every mixer has
 that every architecture's parameter tree has the reference's names and
 shapes (the tape archive and its restore plans depend on them).  Of the
 ``apply_<kind>(p, x, cfg, ctx, cache=None) -> (y, new_cache)`` paths the
-port has attention and Multi-head Latent Attention (MLA decodes absorbed,
-over its compressed cache), the Mamba selective scan, the xLSTM cells
-(mLSTM and sLSTM) and the FFN, each over the full sequence and at
-single-token decode; cross-attention raises :class:`NotImplementedError`
-naming itself and the ROADMAP item that ports it.
+port has all of the reference's: attention, Multi-head Latent Attention
+(MLA decodes absorbed, over its compressed cache), cross-attention to a
+static memory (the VLM image layers and the enc-dec decoder's sub-block),
+the Mamba selective scan, the xLSTM cells (mLSTM and sLSTM) and the FFN,
+each over the full sequence and at single-token decode.
 
 ``cache is None`` selects the full-sequence path (prefill); otherwise the
 single-token decode path runs and writes the cache in place: ``decode_step``
@@ -140,6 +140,33 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> di
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# cross-attention to a static memory (VLM image layers / enc-dec decoder)
+# ---------------------------------------------------------------------------
+def apply_xattn(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
+    """Queries from ``x`` attend, without a mask and without RoPE, to keys and
+    values of the memory (the encoder output or the vision embeddings).
+
+    Over the full sequence, or at decode with a cache that has no ``"k"``,
+    the keys and values are projected from ``ctx.memory`` cast to ``x``'s
+    dtype; otherwise they are the cache's, which
+    :func:`~repro_torch.models.model.warm_cross_cache` filled.  Decode reads
+    the cache and never writes it, and hands back the cache it was given."""
+    B, L, D = x.shape
+    Hq, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _proj(x, p["wq"], p.get("bq")).reshape(B, L, Hq, dh)
+    if cache is None or "k" not in cache:
+        mem = ctx.memory.to(x.dtype)
+        M = mem.shape[1]
+        k = _proj(mem, p["wk"], p.get("bk")).reshape(B, M, Hkv, dh)
+        v = _proj(mem, p["wv"], p.get("bv")).reshape(B, M, Hkv, dh)
+    else:
+        k, v = cache["k"], cache["v"]
+    out = causal_attention(q, k, v, scale=dh**-0.5, causal=False,
+                           scores_f32=cfg.attn_scores_f32)
+    return out.reshape(B, L, Hq * dh) @ p["wo"].to(x.dtype), cache
 
 
 def init_xattn_cache(cfg: ModelConfig, batch: int, mem_len: int, *, device) -> dict:
@@ -527,27 +554,6 @@ def apply_ffn(p, x, cfg: ModelConfig):
     return swiglu(x, p["w_gate"].to(x.dtype), p["w_in"].to(x.dtype), p["w_out"].to(x.dtype))
 
 
-# ---------------------------------------------------------------------------
-# mixers whose apply path is not in this slice
-# ---------------------------------------------------------------------------
-#: mixer -> the ROADMAP item that ports its apply path
-NOT_PORTED = {"xattn": "A9.4"}
-
-
-def not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {kind!r} apply path is not ported to repro_torch yet "
-        f"(ROADMAP item {NOT_PORTED[kind]}); the port applies 'attn', 'mla', 'mamba', "
-        f"'mlstm', 'slstm', the dense FFN and the MoE")
-
-
-def _refused(kind: str):
-    def apply(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
-        raise not_ported(kind)
-    apply.__name__ = f"apply_{kind}"
-    return apply
-
-
 MIXER_INIT = {
     "attn": init_attn,
     "xattn": init_attn,
@@ -558,7 +564,7 @@ MIXER_INIT = {
 }
 MIXER_APPLY = {
     "attn": apply_attn,
-    "xattn": _refused("xattn"),
+    "xattn": apply_xattn,
     "mla": apply_mla,
     "mamba": apply_mamba,
     "mlstm": apply_mlstm,

@@ -25,8 +25,10 @@ load-balancing loss to the aux loss that ``forward`` returns, summed over
 the prologue and the periods as the reference sums it; decode drops it.
 The recurrent mixers (Mamba, mLSTM, sLSTM) keep an O(1) state in the
 decode cache and write it in place, as attention writes its KV slot.
-``encode``/``warm_cross_cache`` and the cross-attention apply path are not
-ported yet (ROADMAP A9.4).
+Cross-attention reads a static memory: the vision embeddings of a VLM, or
+the output of :func:`encode` (the enc-dec encoder stack); before decoding,
+:func:`warm_cross_cache` projects it once into the cross K/V caches, in
+place, and decode reads them and never writes them.
 """
 
 from __future__ import annotations
@@ -40,7 +42,9 @@ from .blocks import (
     MIXER_APPLY,
     MIXER_INIT,
     Ctx,
+    _proj,
     apply_ffn,
+    apply_xattn,
     init_attn,
     init_attn_cache,
     init_ffn,
@@ -49,7 +53,6 @@ from .blocks import (
     init_mlstm_cache,
     init_slstm_cache,
     init_xattn_cache,
-    not_ported,
 )
 from .common import ModelConfig, apply_moe, embed_init, init_moe, rms_norm
 
@@ -203,7 +206,11 @@ def _apply_layer(lp, x, cfg: ModelConfig, kind: str, ctx: Ctx, cache):
     x = x + y
     new_cache = {"mix": new_cache} if new_cache is not None else {}
     if "xmixer" in lp:
-        raise not_ported("xattn")
+        y, xc = apply_xattn(lp["xmixer"], rms_norm(x, lp["lnx"]), cfg, ctx,
+                            cache=cache.get("cross") if cache else None)
+        x = x + y
+        if xc is not None:
+            new_cache["cross"] = xc
     aux = None
     if "moe" in lp:
         y, aux = apply_moe(lp["moe"], rms_norm(x, lp["ln2"]), cfg)
@@ -244,10 +251,17 @@ def _remat(fn, cfg: ModelConfig):
     return remat
 
 
+def _remat_if_training(fn, params, cfg: ModelConfig):
+    """``fn`` under :func:`_remat` only while a gradient is recorded, so
+    serving runs the layers as they are."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
+        return _remat(fn, cfg)
+    return fn
+
+
 def _run_stack(params, x, cfg: ModelConfig, ctx: Ctx):
-    """Train/prefill pass over the prologue and the periods.  The periods are
-    checkpointed only while a gradient is recorded, so serving runs them
-    as they are."""
+    """Train/prefill pass over the prologue and the periods, each period
+    checkpointed while training."""
     aux_total = None
     for lp in params.get("prologue", []):
         x, _, aux = _apply_layer(lp, x, cfg, "attn", ctx, None)
@@ -257,8 +271,7 @@ def _run_stack(params, x, cfg: ModelConfig, ctx: Ctx):
         h, _, aux = _apply_period(pp, h, cfg, ctx, None)
         return h, aux
 
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
-        body = _remat(body, cfg)
+    body = _remat_if_training(body, params, cfg)
     periods = _tree_map(lambda a: a.unbind(0), params["periods"])
     for i in range(cfg.n_periods):
         x, aux = body(x, _tree_map(lambda slices: slices[i], periods))
@@ -266,6 +279,25 @@ def _run_stack(params, x, cfg: ModelConfig, ctx: Ctx):
     if aux_total is None:
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux_total
+
+
+def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder stack (enc-dec models) over the frontend's embeddings
+    ``[B, M, D]``, cast to the compute dtype: non-causal self-attention at
+    positions ``0..M-1``, each layer checkpointed while training, then the
+    encoder's final norm."""
+    B, M = enc_embeds.shape[:2]
+    ctx = Ctx(positions=torch.arange(M, device=enc_embeds.device).expand(B, M), causal=False)
+
+    def body(h, lp):
+        return _apply_layer(lp, h, cfg, "attn", ctx, None)[0]
+
+    body = _remat_if_training(body, params, cfg)
+    layers = _tree_map(lambda a: a.unbind(0), params["encoder"])
+    x = enc_embeds.to(cfg.cdtype)
+    for i in range(cfg.enc_layers):
+        x = body(x, _tree_map(lambda slices: slices[i], layers))
+    return rms_norm(x, params["enc_norm"])
 
 
 def _head(params, cfg: ModelConfig, x):
@@ -332,6 +364,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> 
     return cache
 
 
+def warm_cross_cache(params, cfg: ModelConfig, cache: dict, memory: torch.Tensor) -> dict:
+    """Fill the cross-attention K/V caches from the static ``memory`` (the
+    serving stack's prefill of the encoder output or the vision
+    embeddings), cast to the compute dtype: the ``"mix"`` caches of the VLM
+    ``xattn`` layers and the ``"cross"`` caches of the enc-dec layers, the
+    prologue's included.  Each period's slice of the stacked caches is
+    written in place, one period's projection at a time, so no second cache
+    is allocated.  Returns ``cache`` itself; afterwards ``decode_step``
+    never reads ``memory``."""
+    mem = memory.to(cfg.cdtype)
+    B, M, _ = mem.shape
+
+    def fill(kv, attn_p):
+        for name in ("k", "v"):
+            y = _proj(mem, attn_p[f"w{name}"], attn_p.get(f"b{name}"))
+            kv[name].copy_(y.reshape(B, M, cfg.num_kv_heads, cfg.head_dim))
+
+    for i, kind in enumerate(cfg.block_pattern):
+        key = f"l{i}"
+        for n in range(cfg.n_periods):
+            pp, pc = _at(params["periods"][key], n), _at(cache["periods"][key], n)
+            if kind == "xattn":  # VLM image layers: the memory's K/V are the mixer's cache
+                fill(pc["mix"], pp["mixer"])
+            elif _layer_has_cross(cfg):
+                fill(pc["cross"], pp["xmixer"])
+    if cfg.first_k_dense and _layer_has_cross(cfg):
+        for lp, lc in zip(params["prologue"], cache["prologue"]):
+            fill(lc["cross"], lp["xmixer"])
+    return cache
+
+
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos, *,
                 memory: torch.Tensor | None = None):
     """One decode step -> (logits [B, 1, V] f32, cache).
@@ -340,7 +403,9 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos
     the host).  Every cache is written in place: the attention caches at
     ``pos`` clamped into the cache, as the reference's
     ``dynamic_update_slice`` clamps it, and the recurrent mixers' states
-    whole.  The returned cache is ``cache`` itself.
+    whole; the cross-attention caches are read, never written, and
+    ``memory`` is not read once they exist, as in the reference.  The
+    returned cache is ``cache`` itself.
     """
     pos = int(pos)
     x = params["embed"][tokens].to(cfg.cdtype)

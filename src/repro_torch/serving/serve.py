@@ -4,7 +4,8 @@
 (next_tokens, logits, cache)``, the port's copy of the JAX package's
 ``serving/serve.py``.  Greedy sampling takes the first maximum of the last
 logits (``torch.argmax``, as ``jnp.argmax``) and returns int32 tokens
-``[B, 1]``.
+``[B, 1]``.  ``warm_cross_cache`` fills the cross-attention caches from
+the memory before decoding.
 
 This module is deliberately *not* re-exported from
 :mod:`repro_torch.serving`: it pulls in the language-model stack
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..models.common import ModelConfig
-from ..models.model import decode_step, forward, init_cache
+from ..models.model import decode_step, forward, init_cache, warm_cross_cache
 
 
 def make_serve_step(cfg: ModelConfig):
@@ -40,4 +41,4 @@ def make_prefill(cfg: ModelConfig):
     return prefill
 
 
-__all__ = ["make_serve_step", "make_prefill", "init_cache"]
+__all__ = ["make_serve_step", "make_prefill", "init_cache", "warm_cross_cache"]

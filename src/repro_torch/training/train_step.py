@@ -18,18 +18,20 @@ from typing import Any
 import torch
 
 from ..distributed.checkpoint import named_leaves
-from ..models.blocks import not_ported
 from ..models.common import ModelConfig, softmax_cross_entropy
-from ..models.model import forward, init_model
+from ..models.model import encode, forward, init_model
 from .optimizer import OptConfig, adamw_init, adamw_update
 
 AUX_LOSS_WEIGHT = 0.01
 
 
 def loss_fn(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor, dict[str, Any]]:
-    if cfg.enc_layers or cfg.num_vision_tokens:  # the encoder and the VLM stub feed xattn
-        raise not_ported("xattn")
-    logits, aux = forward(params, cfg, batch["tokens"])
+    memory = None
+    if cfg.enc_layers:  # enc-dec: the encoder runs inside the loss, so its gradients flow
+        memory = encode(params, cfg, batch["enc_embeds"])
+    elif cfg.num_vision_tokens:  # VLM: the stub frontend supplies patch embeddings
+        memory = batch["vision_embeds"]
+    logits, aux = forward(params, cfg, batch["tokens"], memory=memory)
     loss = softmax_cross_entropy(
         logits[:, :-1], batch["tokens"][:, 1:], sharded_vocab=cfg.logits_bf16_ce
     )

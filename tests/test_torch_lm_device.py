@@ -27,8 +27,12 @@ one-ulp noise on their parameters alone moves their gradients by up to
 4.5e-5 of a leaf's largest element (measured on the CPU by
 ``tools/recurrent_drift.py grads``): their gradients
 are held within 5e-4, and the same rule holds their near-zero ones after
-the step.  Run them on a card with ``pytest -m cuda
-tests/test_torch_lm_device.py``.
+the step.  The two cross-attention archs (Llama-3.2-Vision, SeamlessM4T)
+take their frontend's embeddings, drawn from one seed: the forward reads
+the memory (Seamless's through its encoder), decode the cross caches
+``warm_cross_cache`` fills from it, the train step's batch carries the
+embeddings; they are held to the dense decoders' bounds.  Run them on a
+card with ``pytest -m cuda tests/test_torch_lm_device.py``.
 """
 
 import copy
@@ -40,7 +44,7 @@ import torch
 
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.distributed.checkpoint import named_leaves
-from repro_torch.models.model import decode_step, forward, init_cache
+from repro_torch.models.model import decode_step, encode, forward, init_cache, warm_cross_cache
 from repro_torch.serving.serve import make_serve_step
 from repro_torch.training import OptConfig, adamw_init, init_train_state, loss_fn, make_train_step
 
@@ -49,6 +53,7 @@ pytestmark = [pytest.mark.port, pytest.mark.cuda]
 DENSE = ["deepseek-coder-33b", "granite-8b", "qwen2.5-3b", "yi-34b"]
 MOE = ["deepseek-v2-236b", "kimi-k2-1t-a32b"]
 RECURRENT = ["jamba-v0.1-52b", "xlstm-1.3b"]
+CROSS = ["llama-3.2-vision-90b", "seamless-m4t-large-v2"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -82,18 +87,48 @@ def tokens_of(cfg, shape=(2, 16)) -> torch.Tensor:
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape).astype(np.int32))
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+def frontend_of(cfg, batch: int) -> dict[str, torch.Tensor]:
+    """The frontend's embeddings a cross-attention arch's batch carries
+    (Seamless's ``enc_embeds``, the VLM's ``vision_embeds``); none for the
+    others."""
+    if not (cfg.enc_layers or cfg.num_vision_tokens):
+        return {}
+    M = cfg.num_enc_frames or cfg.num_vision_tokens
+    embeds = np.random.default_rng(13).normal(size=(batch, M, cfg.d_model)).astype(np.float32)
+    return {"enc_embeds" if cfg.enc_layers else "vision_embeds": torch.from_numpy(embeds)}
+
+
+def memory_of(model, cfg, embeds: dict[str, torch.Tensor], device: str):
+    """The memory the decoder attends to, on ``device``: the encoder's output
+    or the vision embeddings (``None`` without cross-attention)."""
+    if "enc_embeds" in embeds:
+        return encode(model, cfg, embeds["enc_embeds"].to(device))
+    return embeds["vision_embeds"].to(device) if embeds else None
+
+
+def warm_cache(model, cfg, batch: int, max_len: int, memory, device: str) -> dict:
+    """A decode cache on ``device``, its cross caches filled from ``memory``."""
+    cache = init_cache(cfg, batch, max_len, device=device)
+    return cache if memory is None else warm_cross_cache(model, cfg, cache, memory)
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + CROSS)
 def test_cuda_forward_and_decode_match_cpu(arch, cuda_device):
     cfg, cpu = cpu_model(arch)
     cpu.requires_grad_(False)
     card = on_card(cpu, cuda_device, grad=False)
     tokens = tokens_of(cfg)
-    want, want_aux = forward(cpu, cfg, tokens)
-    got, aux = forward(card, cfg, tokens.to(cuda_device))
+    B, L = tokens.shape
+    embeds = frontend_of(cfg, B)
+    mems = memory_of(cpu, cfg, embeds, "cpu"), memory_of(card, cfg, embeds, cuda_device)
+    if embeds:
+        np.testing.assert_allclose(mems[1].cpu().numpy(), mems[0].numpy(), **TOL)
+    want, want_aux = forward(cpu, cfg, tokens, memory=mems[0])
+    got, aux = forward(card, cfg, tokens.to(cuda_device), memory=mems[1])
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
     np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
-    B, L = tokens.shape
-    caches = init_cache(cfg, B, L, device="cpu"), init_cache(cfg, B, L, device=cuda_device)
+    caches = (warm_cache(cpu, cfg, B, L, mems[0], "cpu"),
+              warm_cache(card, cfg, B, L, mems[1], cuda_device))
     for t in range(L):
         want, _ = decode_step(cpu, cfg, tokens[:, t : t + 1], caches[0], t)
         got, _ = decode_step(card, cfg, tokens[:, t : t + 1].to(cuda_device), caches[1], t)
@@ -120,7 +155,7 @@ def test_cuda_moe_routing_matches_cpu(arch, cuda_device):
         assert all(torch.equal(a, b) for a, b in zip(routed["cpu"], routed[cuda_device]))
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + CROSS)
 def test_cuda_greedy_tokens_match_cpu(arch, cuda_device):
     """Teacher-forced over a 4-token prompt, then 8 greedy steps."""
     cfg, cpu = cpu_model(arch)
@@ -129,9 +164,11 @@ def test_cuda_greedy_tokens_match_cpu(arch, cuda_device):
     tokens = tokens_of(cfg)
     prompt, steps = 4, 8
     serve = make_serve_step(cfg)
+    embeds = frontend_of(cfg, 2)
     out = {}
     for device, model in (("cpu", cpu), (cuda_device, card)):
-        cache = init_cache(cfg, 2, prompt + steps, device=device)
+        cache = warm_cache(model, cfg, 2, prompt + steps,
+                           memory_of(model, cfg, embeds, device), device)
         tok, seq = tokens[:, :1].to(device), []
         for t in range(prompt + steps):
             nxt, _, cache = serve(model, cache, tok, t)
@@ -144,7 +181,7 @@ def test_cuda_greedy_tokens_match_cpu(arch, cuda_device):
     assert torch.equal(out[cuda_device], out["cpu"]) and out["cpu"].shape == (2, steps + 1)
 
 
-TRAIN_CASES = [(arch, remat, {}) for arch in DENSE + RECURRENT
+TRAIN_CASES = [(arch, remat, {}) for arch in DENSE + RECURRENT + CROSS
                for remat in ("full", "dots")] + [
     (arch, remat, {"moe_gather_dispatch": gather}) for arch in MOE
     for remat in ("full", "dots") for gather in (False, True)]
@@ -158,10 +195,10 @@ def test_cuda_train_step_matches_cpu(arch, remat, overrides, cuda_device):
     the step itself."""
     cfg, cpu = cpu_model(arch, remat_policy=remat, **overrides)
     card = on_card(cpu, cuda_device, grad=True)
-    tokens = tokens_of(cfg, (4, 16))
+    batch = {"tokens": tokens_of(cfg, (4, 16)), **frontend_of(cfg, 4)}
     totals, grads = {}, {}
     for device, model in (("cpu", cpu), (cuda_device, card)):
-        total, _ = loss_fn(model, cfg, {"tokens": tokens.to(device)})
+        total, _ = loss_fn(model, cfg, {k: v.to(device) for k, v in batch.items()})
         grads[device] = torch.autograd.grad(total, [p for _, p in named_leaves(model)])
         totals[device] = float(total.detach())
     np.testing.assert_allclose(totals[cuda_device], totals["cpu"], rtol=1e-5)
@@ -171,10 +208,11 @@ def test_cuda_train_step_matches_cpu(arch, remat, overrides, cuda_device):
         assert err <= rel * float(want.abs().max()), (name, err)
     oc = OptConfig(warmup_steps=1, total_steps=10)
     for device, model in (("cpu", cpu), (cuda_device, card)):
-        make_train_step(cfg, oc)(model, adamw_init(model), {"tokens": tokens.to(device)})
+        make_train_step(cfg, oc)(model, adamw_init(model),
+                                 {k: v.to(device) for k, v in batch.items()})
     for (name, a), (_, b), g in zip(named_leaves(card), named_leaves(cpu), grads["cpu"]):
         atol = torch.full(g.shape, 2e-5)
-        if arch not in DENSE:  # a gradient within float noise of zero moves by up to lr
+        if arch not in DENSE + CROSS:  # a gradient within float noise of zero moves by up to lr
             atol[g.abs() <= rel * g.abs().max()] = 2 * oc.learning_rate
         diff = (a.detach().cpu() - b.detach()).abs()
         assert bool((diff <= atol).all()), (name, float(diff.max()),

@@ -10,9 +10,9 @@ reference's weights, carried over by
 numbers from one seed), in float32: ``forward`` logits, its MoE aux loss and
 step-by-step ``decode_step`` logits must equal the reference's within
 ``rtol = atol = 1e-4`` and the greedy tokens of ``make_serve_step`` must be
-the same.  The primitives are held one by one, the cache write past
-``max_len`` must clamp as the reference's, and the mixer the port does not
-apply yet (cross-attention) must refuse by name.
+the same.  The primitives are held one by one, and the cache write past
+``max_len`` must clamp as the reference's.  Cross-attention, the encoder
+and the cross caches are held in ``tests/test_torch_cross.py``.
 """
 
 import dataclasses
@@ -297,38 +297,12 @@ def test_causal_attention_matches_reference(case):
     np.testing.assert_allclose(as_np(got), as_np(want), **DTYPE_TOL[dtype])
 
 
-# ---------------------------------------------------------------------------
-# what the port refuses
-# ---------------------------------------------------------------------------
-#: architecture -> the apply path its reduced forward reaches first
-REFUSED = {
-    "llama-3.2-vision-90b": "xattn",
-    "seamless-m4t-large-v2": "xattn",
-}
-
-
-@pytest.mark.parametrize("arch", sorted(REFUSED))
-def test_unported_mixers_refuse_by_name(arch):
-    """Cross-attention (ROADMAP A9.4) refuses by name in ``forward``, in
-    ``decode_step`` and called alone."""
-    cfg = reduced(ARCHS[arch])
-    model = init_model(cpu_gen(), cfg, device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    kind = REFUSED[arch]
-    with pytest.raises(NotImplementedError, match=f"'{kind}' apply path .*ROADMAP item A9"):
-        forward(model, cfg, tokens)
-    with pytest.raises(NotImplementedError, match=f"'{kind}'"):
-        decode_step(model, cfg, tokens[:, :1], init_cache(cfg, 1, 4, device="cpu"), 0)
-    with pytest.raises(NotImplementedError, match=f"'{kind}'"):
-        blocks.MIXER_APPLY[kind](None, None, cfg, blocks.Ctx())
-
-
-@pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm"])
+@pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm", "xattn"])
 def test_recurrent_mixers_are_ported(kind):
-    """The Mamba and xLSTM paths (ROADMAP A9.2, A9.3), refused until they
-    were ported, map to their apply functions; the ``dense`` fixture runs
-    Jamba and xLSTM against the reference."""
-    assert kind not in blocks.NOT_PORTED
+    """The Mamba and xLSTM paths (ROADMAP A9.2, A9.3) and cross-attention
+    (A9.4), refused until they were ported, map to their apply functions;
+    the ``dense`` fixture runs Jamba and xLSTM against the reference, and
+    ``tests/test_torch_cross.py`` the two cross-attention architectures."""
     assert blocks.MIXER_APPLY[kind] is getattr(blocks, f"apply_{kind}")
 
 

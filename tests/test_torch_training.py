@@ -80,6 +80,8 @@ pytestmark = pytest.mark.port
 DENSE = ["deepseek-coder-33b", "granite-8b", "qwen2.5-3b", "yi-34b"]
 MOE = ["deepseek-v2-236b", "kimi-k2-1t-a32b"]
 RECURRENT = ["jamba-v0.1-52b", "xlstm-1.3b"]  # Jamba's MoE layers add an aux loss
+#: the cross-attention archs: their batches carry the frontend's embeddings
+CROSS = ["llama-3.2-vision-90b", "seamless-m4t-large-v2"]
 #: the bounds of the module docstring, and the looser ones of the reduced
 #: recurrent archs: 16 layers (two 8-layer periods) where the others have
 #: 2-3.  Their gradients are ill-conditioned in the parameters: one-ulp
@@ -130,6 +132,20 @@ def pair(arch: str, *, periods: int = 2, **overrides):
 
 def tokens_of(cfg, shape=(2, 16), seed: int = 11) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def batch_of(cfg, tokens: np.ndarray, seed: int = 13) -> dict[str, np.ndarray]:
+    """A train batch of ``tokens``; a cross-attention arch's also carries
+    its frontend's embeddings (Seamless's ``enc_embeds``, the VLM's
+    ``vision_embeds``), drawn from ``seed``."""
+    batch = {"tokens": tokens}
+    shape = (tokens.shape[0], cfg.num_enc_frames or cfg.num_vision_tokens, cfg.d_model)
+    rng = np.random.default_rng(seed)
+    if cfg.enc_layers:
+        batch["enc_embeds"] = rng.normal(size=shape).astype(np.float32)
+    elif cfg.num_vision_tokens:
+        batch["vision_embeds"] = rng.normal(size=shape).astype(np.float32)
+    return batch
 
 
 def as_named(tree) -> dict[str, np.ndarray]:
@@ -361,35 +377,29 @@ def test_serving_params_record_no_graph_and_training_params_do():
     assert forward(params, cfg, tokens)[0].grad_fn is not None
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "seamless-m4t-large-v2"])
-def test_loss_fn_refuses_the_cross_attention_configs_by_name(arch):
-    cfg = reduced(ARCHS[arch])
-    params, _ = init_train_state(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="'xattn' apply path .*ROADMAP item A9.4"):
-        loss_fn(params, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
-
-
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("microbatches", [1, 4])
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + CROSS)
 def test_train_steps_match_reference(arch, microbatches):
     """Three steps (warmup of 2, so the schedule turns), held after the first
     and the third; ``metrics`` is the last microbatch's loss and aux loss in
-    both."""
+    both.  The cross-attention archs' batches carry their frontend's
+    embeddings, split into microbatches with the tokens."""
     ref_cfg, ref_params, cfg, params = pair(arch)
     opt = adamw_init(params)
     ref_state = ref_opt.adamw_init(ref_params)
-    tokens = tokens_of(cfg, (8, 16))
+    batch = batch_of(cfg, tokens_of(cfg, (8, 16)))
     ref_step = jax.jit(ref_train.make_train_step(
         ref_cfg, ref_opt.OptConfig(warmup_steps=2, total_steps=10), microbatches=microbatches))
     step = make_train_step(cfg, OptConfig(warmup_steps=2, total_steps=10),
                            microbatches=microbatches)
     for n in range(1, 4):
-        ref_params, ref_state, ref_metrics = ref_step(ref_params, ref_state,
-                                                      {"tokens": jnp.asarray(tokens)})
-        got_params, got_opt, metrics = step(params, opt, {"tokens": torch.from_numpy(tokens)})
+        ref_params, ref_state, ref_metrics = ref_step(
+            ref_params, ref_state, {k: jnp.asarray(v) for k, v in batch.items()})
+        got_params, got_opt, metrics = step(params, opt,
+                                            {k: torch.from_numpy(v) for k, v in batch.items()})
         assert got_params is params and got_opt is opt
         if n == 2:
             continue
