@@ -52,7 +52,14 @@ forward over the memory, then the memory prefill and bf16 serving, timed and
 profiled); 13c the restore of both whole checkpoints from 20 TB cartridges
 through the CUDA kernels, held equal to ``python``; 13d both archs reduced
 on the card against the CPU and through both launchers; 13e SeamlessM4T
-trained at full width through the training launcher's loop.  Every phase
+trained at full width through the training launcher's loop.  Phase 14 runs
+the mesh path on the card's world of one rank (a NCCL group over a
+``FileStore``): 14a Qwen2.5-3B trained at full width on the plain path and
+on the mesh path, every parameter and moment a ``DTensor``, held equal bit
+for bit; 14b its bf16 serving on both, the cache placed by
+``cache_pspecs``, greedy tokens held equal; 14c ``--mesh pod|multipod``
+raising the reference's ``RuntimeError`` and ``compressed_grads`` on the
+trained model's gradients; 14d one dry-run cell on the CPU.  Every phase
 fails the run on any mismatch.
 
 Usage, from the root of a checkout, on a machine with a CUDA card::
@@ -339,6 +346,20 @@ CROSS_ARCHS = (VLM_ARCH, SEAMLESS_ARCH)
 TRAIN_SEAMLESS = ["--arch", SEAMLESS_ARCH, "--steps", "10", "--batch", "4", "--seq", "512",
                   "--ckpt-every", "1000", "--frontend-seed", "0"]
 TRAIN_SEAMLESS_TIMED_FROM = 3
+
+#: phase 14: the mesh path on the card's world of one rank (a NCCL group over
+#: a FileStore under build/): Qwen2.5-3B trained at full width 5 steps at
+#: 4 x 512 on the plain path and on the mesh path (14a), served bf16 at batch
+#: 8 with the cache placed by cache_pspecs (14b), the production meshes and
+#: the gradient compressors on 14a's last gradients (14c), and one dry-run
+#: cell on the CPU (14d)
+MESH_TRAIN = ["--arch", LM_ARCH, "--steps", "5", "--batch", "4", "--seq", "512",
+              "--ckpt-every", "1000"]
+MESH_SERVE = dict(batch=8, prompt=8, new=16)
+MESH_COMPRESS_RATIO = 0.01
+MESH_DRYRUN = ["--arch", LM_ARCH, "--shape", "train_4k", "--mesh", "both"]
+MESH_DRYRUN_TIMEOUT = 600
+
 
 def serving_exactness(dev: str) -> None:
     """Phase 6: serve the reference's serving scenarios on ``cuda`` and on
@@ -2145,6 +2166,338 @@ def training_paths(dev: str) -> dict:
                 proc.wait()
 
 
+def profiled_ops(step, steps: int = 1) -> dict:
+    """One call of ``step`` (``steps`` steps) under the profiler: its
+    :func:`profile_split` per step and wall ms per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {**profile_split(prof, steps), "wall_ms": 1e3 * wall / steps}
+
+
+def mesh_training(dev: str, store: Path) -> dict:
+    """Phase 14a: Qwen2.5-3B trained at full width through the launcher's
+    loop (``launch.train.train``), first on the plain path, then with a
+    process group of one rank up, on the mesh path: every parameter and
+    moment a ``DTensor`` on the ``{'data': 1, 'model': 1}`` mesh.  Losses and
+    final parameters must be equal bit for bit.  Returns the mesh path's
+    config, parameters and optimizer state."""
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.checkpoint import named_leaves
+    from repro_torch.distributed.context import mesh_scope
+    from repro_torch.distributed.sharding import batch_pspecs, full_tree, place_tree
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import OptConfig, make_train_step
+
+    def args_of(run: str):
+        return launch_train.build_parser().parse_args(
+            [*MESH_TRAIN, "--device", dev, "--ckpt-dir", str(store.parent / f"ckpt_{run}")])
+
+    def step_in(mesh, step, params, opt, batch):
+        with mesh_scope(mesh):
+            step(params, opt, batch)
+
+    def one_run(run: str, mesh_path: bool):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = launch_train.train(args_of(run))
+        wall = time.perf_counter() - t0
+        cfg, params, opt = out["cfg"], out["params"], out["opt_state"]
+        # one more step under the profiler, on a batch of its own
+        rng = np.random.default_rng(3)
+        step = make_train_step(cfg, OptConfig(learning_rate=3e-4, warmup_steps=20,
+                                              total_steps=6))
+        batch = launch_train.train_batch(cfg, np.minimum(rng.zipf(1.2, size=(4, 512)),
+                                                         cfg.vocab_size - 1), dev)
+        if mesh_path:
+            batch = place_tree(batch, batch_pspecs(batch, out["mesh"]), out["mesh"])
+        split = profiled_ops(lambda: step_in(out["mesh"], step, params, opt, batch))
+        secs = [h["seconds"] for h in out["history"][1:]]
+        return out, {"wall": wall, "step_ms": 1e3 * statistics.median(secs),
+                     "min_ms": 1e3 * min(secs), "max_ms": 1e3 * max(secs),
+                     "peak": torch.cuda.max_memory_allocated(), "split": split}
+
+    if dist.is_initialized():
+        raise SystemExit("phase 14a FAILED: a process group is up before the plain run")
+    plain, plain_t = one_run("plain", False)
+    if plain["mesh"] is not None:
+        raise SystemExit("phase 14a FAILED: the plain run took the mesh path")
+    losses = [h["loss"] for h in plain["history"]]
+    want = {name: p.detach().cpu() for name, p in named_leaves(plain["params"])}
+    del plain
+    torch.cuda.empty_cache()
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1)
+    mesh_run, mesh_t = one_run("mesh", True)
+    mesh = mesh_run["mesh"]
+    axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    kinds = {type(p).__name__ for p in mesh_run["params"].parameters()} | \
+        {type(t).__name__ for _, t in named_leaves(mesh_run["opt_state"]["m"])}
+    if axes != {"data": 1, "model": 1} or kinds != {"DTensor"}:
+        raise SystemExit(f"phase 14a FAILED: mesh {axes}, leaves {kinds}")
+    mesh_losses = [h["loss"] for h in mesh_run["history"]]
+    full = full_tree(mesh_run["params"])
+    differ = [name for name, t in named_leaves(full) if not torch.equal(t.cpu(), want[name])]
+    worst = max(float((t.cpu() - want[name]).abs().max()) for name, t in named_leaves(full))
+    del full, want
+    if mesh_losses != losses or differ:
+        raise SystemExit(f"phase 14a FAILED: mesh path != plain path: losses {mesh_losses} vs "
+                         f"{losses}; {len(differ)} parameter leaves differ {differ[:5]}, "
+                         f"max abs {worst:.3g}")
+    n_params = sum(p.numel() for p in mesh_run["params"].parameters())
+    log(f"phase 14a: {LM_ARCH} trained at full width ({n_params} parameters, not cut), "
+        f"5 steps at 4 x 512 on the plain path and on the mesh path {axes} (every parameter "
+        f"and moment a DTensor): losses {losses} equal bit for bit, all final parameters "
+        f"equal bit for bit (max abs difference {worst})")
+    for name, t in (("plain", plain_t), ("mesh", mesh_t)):
+        sp = t["split"]
+        log(f"phase 14a: {name} path: steps 2-5 median {t['step_ms']:.3f} ms a step (min "
+            f"{t['min_ms']:.3f}, max {t['max_ms']:.3f}), run with init {t['wall']:.3f} s, peak "
+            f"device memory {t['peak'] / 2**30:.3f} GiB; profiled step {sp['wall_ms']:.3f} ms "
+            f"wall, {sp['kernel_ms']:.3f} ms of kernel time, {sp['kernels']:.0f} kernels and "
+            f"{sp['ops']:.0f} aten operators")
+    return mesh_run
+
+
+def mesh_compression(run: dict, dev: str) -> None:
+    """Phase 14c: the reference's gradient compressors on the gradients of
+    one more batch at 14a's trained mesh parameters (gathered), with both
+    methods: top-k keeps at most ``max(1, int(n * ratio))`` elements a leaf,
+    int8 reconstructs within half its scale, and in both the reconstruction
+    plus the new residual is the target (gradient plus old residual)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.checkpoint import named_leaves
+    from repro_torch.distributed.compression import compressed_grads, init_error_feedback
+    from repro_torch.distributed.context import mesh_scope
+    from repro_torch.distributed.sharding import batch_pspecs, full_tree, place_tree
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import loss_fn
+
+    cfg, params, mesh = run["cfg"], run["params"], run["mesh"]
+    run.clear()  # the optimizer state goes: the gradients and the compressors need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14c: {torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card with 14a's "
+        f"parameters alone")
+    batch = launch_train.train_batch(cfg, np.minimum(np.random.default_rng(4).zipf(
+        1.2, size=(4, 512)), cfg.vocab_size - 1), dev)
+    names, leaves = zip(*named_leaves(params))
+    with mesh_scope(mesh):
+        # only the total: the metrics' graph would keep the parameters alive
+        total = loss_fn(params, cfg, place_tree(batch, batch_pspecs(batch, mesh), mesh))[0]
+        grads = list(torch.autograd.grad(total, leaves))
+    del params, leaves, total
+    for i, g in enumerate(grads):  # gathered one leaf at a time
+        grads[i] = full_tree(g)
+    grads = dict(zip(names, grads))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14c: {torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card with the "
+        f"gathered gradients alone")
+    n = sum(g.numel() for g in grads.values())
+    for method in ("topk", "int8"):
+        ef = init_error_feedback(grads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec, resid, ratio = compressed_grads(grads, ef, method, ratio=MESH_COMPRESS_RATIO)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        kept, bad = 0, []
+        for name, g in grads.items():
+            target = g.float() + ef[name]
+            if method == "topk":
+                k = int((rec[name] != 0).sum())
+                kept += k
+                ok = k <= max(1, int(g.numel() * MESH_COMPRESS_RATIO)) and \
+                    torch.equal(rec[name] + resid[name], target)
+            else:
+                scale = target.abs().max().clamp_min(1e-12) / 127.0
+                ok = float((rec[name] - target).abs().max()) <= float(scale) * 0.5 + 1e-6 and \
+                    bool(torch.allclose(rec[name] + resid[name], target, rtol=0,
+                                        atol=float(scale) * 1e-6))
+            if not ok:
+                bad.append(name)
+        if bad or ratio != {"topk": 2 * MESH_COMPRESS_RATIO, "int8": 0.25}[method]:
+            raise SystemExit(f"phase 14c FAILED: {method}: invariants fail on {bad[:5]}, "
+                             f"bytes ratio {ratio}")
+        share = f", kept {kept} of {n} elements ({100 * kept / n:.3f}%)" if method == "topk" else ""
+        log(f"phase 14c: compressed_grads {method} on {len(grads)} gradient leaves ({n} "
+            f"elements) in {ms:.3f} ms, bytes ratio {ratio}{share}; reconstruction + residual "
+            f"= target on every leaf")
+        del rec, resid, ef
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def mesh_serving(dev: str) -> None:
+    """Phase 14b: Qwen2.5-3B at full width, bf16 compute, batch 8: a prefill
+    of ``MESH_SERVE["prompt"]`` tokens through the decode step and
+    ``MESH_SERVE["new"]`` greedy steps, on the plain path and on the mesh
+    path (parameters by ``param_pspecs``, the cache by ``cache_pspecs``,
+    prompts by batch; the process group of 14a up).  The tokens must be
+    equal; each path's ms a step and aten operators a step are recorded."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed.context import is_sharded, mesh_scope
+    from repro_torch.distributed.sharding import cache_pspecs, dp_axes, param_pspecs, place, \
+        place_tree
+    from repro_torch.launch.train import _auto_mesh
+    from repro_torch.models.model import init_cache, init_model
+    from repro_torch.serving.serve import make_serve_step
+
+    cfg = ARCHS[LM_ARCH]
+    B, P, N = MESH_SERVE["batch"], MESH_SERVE["prompt"], MESH_SERVE["new"]
+    serve = make_serve_step(cfg)
+    params = init_model(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    mesh = _auto_mesh("auto")
+    out = {}
+    for name in ("plain", "mesh"):
+        cache = init_cache(cfg, B, P + N + 1, device=dev)
+        toks = prompts
+        on = mesh if name == "mesh" else None
+        if on is not None:
+            place_tree(params, param_pspecs(params), mesh)
+            cache = place_tree(cache, cache_pspecs(cache, mesh), mesh)
+            toks = place(prompts, (dp_axes(mesh), None), mesh)
+        with mesh_scope(on):
+            for t in range(P - 1):
+                _, _, cache = serve(params, cache, toks[:, t:t + 1], t)
+            tok, seq, secs = toks[:, -1:], [], []
+            for t in range(N):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tok, _, cache = serve(params, cache, tok, P - 1 + t)
+                seq.append(tok)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            seq = torch.cat(seq, 1)
+            split = profiled_ops(lambda: serve(params, cache, tok, P + N - 1))
+        out[name] = {"tokens": (seq.full_tensor() if is_sharded(seq) else seq).cpu(),
+                     "ms": 1e3 * statistics.median(secs[1:]), "split": split}
+    if not torch.equal(out["plain"]["tokens"], out["mesh"]["tokens"]):
+        raise SystemExit("phase 14b FAILED: the mesh path's greedy tokens != the plain path's")
+    log(f"phase 14b: {LM_ARCH} bf16 at batch {B}, {P} prompt tokens, {N} greedy steps: the "
+        f"mesh path's tokens == the plain path's ({out['plain']['tokens'][0, :8].tolist()} ...)")
+    for name, r in out.items():
+        sp = r["split"]
+        log(f"phase 14b: {name} path: median {r['ms']:.3f} ms a step (steps 2-{N}), "
+            f"{B * 1e3 / r['ms']:.1f} tokens/s; profiled step {sp['wall_ms']:.3f} ms wall, "
+            f"{sp['kernel_ms']:.3f} ms of kernel time, {sp['kernels']:.0f} kernels and "
+            f"{sp['ops']:.0f} aten operators")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def production_meshes_raise() -> None:
+    """Phase 14c: ``--mesh pod`` and ``--mesh multipod`` on one card raise
+    the reference's ``RuntimeError`` (256 and 512 ranks needed, one here),
+    through ``_auto_mesh`` and through both launchers."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+
+    for kind, n in (("pod", 256), ("multipod", 512)):
+        head = f"need {n} devices for mesh"
+        for label, call in (("_auto_mesh", lambda: launch_train._auto_mesh(kind)),
+                            ("train", lambda: launch_train.main(["--mesh", kind])),
+                            ("serve", lambda: launch_serve.main(["--mesh", kind]))):
+            try:
+                call()
+            except RuntimeError as e:
+                if not str(e).startswith(head) or "have 1" not in str(e):
+                    raise SystemExit(f"phase 14c FAILED: {label} --mesh {kind} raised {e}")
+                continue
+            raise SystemExit(f"phase 14c FAILED: {label} --mesh {kind} did not raise")
+        log(f"phase 14c: --mesh {kind} on one card raises the reference's RuntimeError "
+            f"('{head} ...; have 1') through _auto_mesh and both launchers")
+
+
+def mesh_dryrun() -> None:
+    """Phase 14d: one dry-run cell in a process of its own on the CPU (its
+    fake process group of 512 ranks), Qwen2.5-3B ``train_4k`` on both
+    production meshes; prints the per-device bytes and collectives it
+    computed."""
+    import os
+
+    out = ROOT / "build" / "dryrun_14d"
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *MESH_DRYRUN,
+                               "--out", str(out), "--force"], capture_output=True, text=True,
+                              env=env, cwd=ROOT, timeout=MESH_DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"phase 14d FAILED: the dry run took over {MESH_DRYRUN_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 14d FAILED: exit {proc.returncode}: {proc.stdout[-2000:]} "
+                         f"{proc.stderr[-2000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith(("PASS", "FAIL", "dry-run")):
+            log(f"phase 14d: {line}")
+    for name in ("pod16x16", "pod2x16x16"):
+        rec = json.loads((out / f"{LM_ARCH}__train_4k__{name}.json").read_text())
+        mem = rec["memory"]
+        log(f"phase 14d: {name}: per device (computed on the CPU, not measured on a card) "
+            f"arguments {mem['argument_size_in_bytes']} B, outputs "
+            f"{mem['output_size_in_bytes']} B, {rec['flops']:.6g} FLOP of products, "
+            f"collectives {json.dumps(rec['collectives'])} B ({rec['collective_bytes']:.6g} B), "
+            f"step run in {rec['full_compile_s']} s")
+    log(f"phase 14d: dry run of {LM_ARCH} train_4k on both meshes exit 0 in {wall:.3f} s")
+
+
+def mesh_path(dev: str, phases: dict) -> None:
+    """Phase 14, each part timed into ``phases``; the process group it
+    starts is destroyed whatever fails."""
+    import shutil
+
+    import torch.distributed as dist
+
+    work = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        run = mesh_training(dev, work / "store")
+        phases["14a Qwen2.5-3B trained on the mesh path"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh_compression(run, dev)
+        del run
+        phases["14c gradient compression"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh_serving(dev)
+        phases["14b Qwen2.5-3B served on the mesh path"] = time.perf_counter() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    production_meshes_raise()
+    phases["14c production meshes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_dryrun()
+    phases["14d dry-run cell"] = time.perf_counter() - t0
+
+
 def main() -> int:
     import torch
 
@@ -2645,6 +2998,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_training("13e", TRAIN_SEAMLESS, TRAIN_SEAMLESS_TIMED_FROM, dev)
     phases["13e SeamlessM4T trained at full width"] = time.perf_counter() - t0
+
+    # ---- phase 14: the mesh path ---------------------------------------------------
+    ltsp_dp.reset_launches()
+    mesh_path(dev, phases)
+    path_launches["14 mesh path"] = dict(ltsp_dp.LAUNCHES)
 
     # the kernels line counts the launches of every path, each path's counts
     # set to 0 just before it and read just after

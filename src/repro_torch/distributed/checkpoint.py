@@ -101,10 +101,39 @@ def _structure(tree) -> str:
     return "*"
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _to_numpy(leaf) -> np.ndarray:
+    """A leaf as a numpy array; a ``DTensor`` leaf gathered whole first
+    (a collective: every rank of its mesh calls it)."""
     if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _laid_out_as(tensor: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
+    """``tensor`` (the whole leaf) on ``template``'s device; for a ``DTensor``
+    template laid out as it, each rank keeping its own shard."""
+    if not _is_dtensor(template):
+        return tensor.to(template.device)
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(tensor.to(template.device), template.device_mesh,
+                             template.placements, src_data_rank=None)
+
+
+def _is_writer() -> bool:
+    """Whether this process writes files: the only one, or rank 0 of the
+    process group."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def _file_name(i: int, tree_name: str, leaf_name: str) -> str:
@@ -123,9 +152,15 @@ def save_checkpoint(path: str | pathlib.Path, step: int, **trees: Any) -> None:
     text for dicts, lists, tuples and None, a module written as the dict of
     its parameters and children).  Neither package reads the entry back:
     both load by a template.
+
+    Trees of ``DTensor`` s (the mesh path) are written gathered, so the
+    files are the one-device port's byte for byte; every rank gathers and
+    rank 0 of the process group writes.
     """
     path = pathlib.Path(path)
-    path.mkdir(parents=True, exist_ok=True)
+    writer = _is_writer()
+    if writer:
+        path.mkdir(parents=True, exist_ok=True)
     manifest: dict[str, Any] = {"step": int(step), "trees": {}}
     for tree_name, tree in trees.items():
         leaves = [(n, _to_numpy(leaf)) for n, leaf in named_leaves(tree)]
@@ -137,17 +172,20 @@ def save_checkpoint(path: str | pathlib.Path, step: int, **trees: Any) -> None:
             ],
         }
         files = [_file_name(i, tree_name, n) for i, (n, _) in enumerate(leaves)]
-        for f, (_, arr) in zip(files, leaves):
-            np.save(path / f, arr)
+        if writer:
+            for f, (_, arr) in zip(files, leaves):
+                np.save(path / f, arr)
         manifest["trees"][tree_name]["files"] = files
-    (path / "manifest.json").write_text(json.dumps(manifest))
+    if writer:
+        (path / "manifest.json").write_text(json.dumps(manifest))
 
 
 def _unflatten(template, arrays):
     """``template``'s containers with its leaves taken from ``arrays`` in
     pytree order (dicts come back with their keys sorted, as JAX's do).  A
     tensor leaf of the template comes back as a tensor on its device, of its
-    shape and dtype (or the load refuses); any other leaf as the array."""
+    shape and dtype (or the load refuses), laid out as it if it is a
+    ``DTensor``; any other leaf as the array."""
     if template is None:
         return None
     if isinstance(template, dict):
@@ -161,7 +199,7 @@ def _unflatten(template, arrays):
     if leaf.shape != template.shape or leaf.dtype != template.dtype:
         raise ValueError(f"checkpoint leaf {tuple(leaf.shape)} {leaf.dtype} does not match "
                          f"its template {tuple(template.shape)} {template.dtype}")
-    return leaf.to(template.device)
+    return _laid_out_as(leaf, template)
 
 
 def load_checkpoint(path: str | pathlib.Path, **templates: Any):

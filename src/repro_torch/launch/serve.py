@@ -33,8 +33,14 @@ parameters to a simulated tape library and plans their restore with
 ``--tape-policy`` (the cold start of a serving fleet), printing the mean
 shard arrival.  At full width the reference's 4 MB cartridges cannot hold
 the embedding shard, and the archive raises ``tape ... full`` in both
-packages.  One device serves: ``--mesh pod|multipod`` needs the sharding
-slice (ROADMAP A9.6) and exits 2.  Every architecture serves: the MoE ones
+packages.  When a process group is up (under ``torchrun``, or one the
+caller started) the model serves on a mesh at any world size, one
+included: the training launcher's ``_auto_mesh`` over the group's ranks,
+the parameters placed by ``param_pspecs``, the decode cache by
+``cache_pspecs`` (sequence-sharded over "model"), the prompts by batch, and
+the steps run with the mesh active.  Without one, ``--mesh auto`` serves on
+one device and ``--mesh pod|multipod`` raises the reference's
+``RuntimeError`` (``need 256 devices ...``).  Every architecture serves: the MoE ones
 (DeepSeek-V2, Kimi-K2), the recurrent ones (Jamba, xLSTM: their Mamba,
 mLSTM and sLSTM states decoded in place) and the two with cross-attention
 (Llama-3.2-Vision, Seamless), which decode against the zero cross caches
@@ -116,16 +122,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import sys
 import time
 
 from ..core.context import BACKENDS, ComputeBudget
 from ..core.solver import ExecutionContext, list_selectors, list_solvers
-
-MESH_MESSAGE = (
-    "--mesh {mesh} shards the model over many devices, which needs the sharding "
-    "slice of the port (ROADMAP item A9.6); --mesh auto serves on one device"
-)
 
 
 def _device_context(args) -> dict:
@@ -171,41 +171,56 @@ def _restore_from_tape(params, policy: str, context: dict) -> None:
 
 
 def _serve_lm(args) -> int:
-    """Serve ``--arch`` on one device: prefill, then greedy decoding."""
+    """Serve ``--arch`` on one device or a mesh: prefill, then greedy
+    decoding."""
     import torch
 
     from ..configs import ARCHS, reduced
+    from ..distributed.context import is_sharded, mesh_scope
+    from ..distributed.sharding import cache_pspecs, dp_axes, param_pspecs, place, place_tree
     from ..models.model import check_device, init_cache, init_model
     from ..serving.serve import make_serve_step
+    from .train import _auto_mesh, group_up, rank_device, start_process_group
 
-    if args.mesh != "auto":
-        print(MESH_MESSAGE.format(mesh=args.mesh), file=sys.stderr)
-        return 2
-    cfg = ARCHS[args.arch]
-    if args.reduced:
-        cfg = reduced(cfg, periods=2)
-        cfg = dataclasses.replace(cfg, vocab_size=min(cfg.vocab_size, 32768))
-    device = torch.device(args.tape_device)
-    check_device(device)
-    max_len = args.prompt_len + args.new_tokens
+    started = start_process_group(args.tape_device)
+    try:
+        mesh = _auto_mesh(args.mesh) if group_up() or args.mesh != "auto" else None
+        cfg = ARCHS[args.arch]
+        if args.reduced:
+            cfg = reduced(cfg, periods=2)
+            cfg = dataclasses.replace(cfg, vocab_size=min(cfg.vocab_size, 32768))
+        check_device(args.tape_device)
+        device = rank_device(args.tape_device)
+        max_len = args.prompt_len + args.new_tokens
 
-    params = init_model(torch.Generator(device).manual_seed(0), cfg, device=device)
-    if args.restore_from_tape:
-        _restore_from_tape(params, args.tape_policy, _device_context(args))
-    cache = init_cache(cfg, args.batch, max_len=max_len, device=device)
-    serve = make_serve_step(cfg)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), device=device,
-                            generator=torch.Generator(device).manual_seed(1))
-    for t in range(args.prompt_len - 1):  # teacher-forced prefill
-        _, _, cache = serve(params, cache, prompts[:, t : t + 1], t)
-    tok = prompts[:, -1:]
-    t0 = time.time()
-    outs = []
-    for t in range(args.new_tokens):
-        tok, _, cache = serve(params, cache, tok, args.prompt_len - 1 + t)
-        outs.append(tok)
-    first = torch.cat(outs, 1)[0].cpu()  # waits for the last step
-    dt = time.time() - t0
+        params = init_model(torch.Generator(device).manual_seed(0), cfg, device=device)
+        if args.restore_from_tape:
+            _restore_from_tape(params, args.tape_policy, _device_context(args))
+        cache = init_cache(cfg, args.batch, max_len=max_len, device=device)
+        serve = make_serve_step(cfg)
+        prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                                device=device, generator=torch.Generator(device).manual_seed(1))
+        if mesh is not None:
+            place_tree(params, param_pspecs(params), mesh)
+            cache = place_tree(cache, cache_pspecs(cache, mesh), mesh)
+            prompts = place(prompts, (dp_axes(mesh), None), mesh)
+        with mesh_scope(mesh):
+            for t in range(args.prompt_len - 1):  # teacher-forced prefill
+                _, _, cache = serve(params, cache, prompts[:, t : t + 1], t)
+            tok = prompts[:, -1:]
+            t0 = time.time()
+            outs = []
+            for t in range(args.new_tokens):
+                tok, _, cache = serve(params, cache, tok, args.prompt_len - 1 + t)
+                outs.append(tok)
+            tokens = torch.cat(outs, 1)
+            first = (tokens.full_tensor() if is_sharded(tokens) else tokens)[0].cpu()
+        dt = time.time() - t0  # the copy above waits for the last step
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     print(f"{cfg.arch_id}: {args.batch}x{args.new_tokens} tokens in {dt:.2f}s "
           f"({args.batch*args.new_tokens/dt:.0f} tok/s)")
     print("first sequence:", first[:16].tolist(), "...")
@@ -611,8 +626,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--mesh", default="auto", choices=["auto", "pod", "multipod"],
-                    help="device mesh of the model: 'auto' is one device (the "
-                         "multi-device meshes are refused: ROADMAP item A9.6)")
+                    help="device mesh of the model: 'auto' the largest (data, model) grid "
+                         "over the process group's ranks (one device without a group); "
+                         "'pod' 16x16, 'multipod' 2x16x16")
     ap.add_argument("--restore-from-tape", action="store_true",
                     help="simulate an LTSP-scheduled checkpoint restore first")
     ap.add_argument("--tape-policy", default="dp", choices=list_solvers())

@@ -29,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed.context import merge_dims, replicated_apply, split_dim, unshard, write_at
 from .common import (
     ModelConfig,
     apply_rope,
@@ -101,9 +102,9 @@ def _attend(q, k, v, cfg: ModelConfig, ctx: Ctx, scale: float):
 def apply_attn(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
     B, L, D = x.shape
     Hq, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _proj(x, p["wq"], p.get("bq")).reshape(B, L, Hq, dh)
-    k = _proj(x, p["wk"], p.get("bk")).reshape(B, L, Hkv, dh)
-    v = _proj(x, p["wv"], p.get("bv")).reshape(B, L, Hkv, dh)
+    q = split_dim(_proj(x, p["wq"], p.get("bq")), -1, Hq, dh)
+    k = split_dim(_proj(x, p["wk"], p.get("bk")), -1, Hkv, dh)
+    v = split_dim(_proj(x, p["wv"], p.get("bv")), -1, Hkv, dh)
 
     scale = dh**-0.5
     if cache is None:
@@ -122,17 +123,17 @@ def apply_attn(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
         k_cache, v_cache = cache["k"], cache["v"]
         S = k_cache.shape[1]
         slot = _cache_slot(pos, S)
-        k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+        write_at(k_cache, 1, slot, k[:, 0].to(k_cache.dtype))
+        write_at(v_cache, 1, slot, v[:, 0].to(v_cache.dtype))
         mask = torch.arange(S, device=x.device) <= pos  # valid prefix
-        qg = q.reshape(B, 1, Hkv, Hq // Hkv, dh)
+        qg = split_dim(unshard(q, 2), 2, Hkv, Hq // Hkv)
         logits = torch.einsum("blhgd,bmhd->bhglm", qg, k_cache).float() * scale
         logits = logits.masked_fill(~mask, -1e30)
         w = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhglm,bmhd->blhgd", w.to(v_cache.dtype), v_cache)
         out = out.reshape(B, 1, Hq, dh)
         new_cache = {"k": k_cache, "v": v_cache}
-    y = out.reshape(B, -1, Hq * dh) @ p["wo"].to(x.dtype)
+    y = merge_dims(out, 2, 2) @ p["wo"].to(x.dtype)
     return y, new_cache
 
 
@@ -156,17 +157,17 @@ def apply_xattn(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
     the cache and never writes it, and hands back the cache it was given."""
     B, L, D = x.shape
     Hq, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _proj(x, p["wq"], p.get("bq")).reshape(B, L, Hq, dh)
+    q = split_dim(_proj(x, p["wq"], p.get("bq")), -1, Hq, dh)
     if cache is None or "k" not in cache:
         mem = ctx.memory.to(x.dtype)
         M = mem.shape[1]
-        k = _proj(mem, p["wk"], p.get("bk")).reshape(B, M, Hkv, dh)
-        v = _proj(mem, p["wv"], p.get("bv")).reshape(B, M, Hkv, dh)
+        k = split_dim(_proj(mem, p["wk"], p.get("bk")), -1, Hkv, dh)
+        v = split_dim(_proj(mem, p["wv"], p.get("bv")), -1, Hkv, dh)
     else:
         k, v = cache["k"], cache["v"]
     out = causal_attention(q, k, v, scale=dh**-0.5, causal=False,
                            scores_f32=cfg.attn_scores_f32)
-    return out.reshape(B, L, Hq * dh) @ p["wo"].to(x.dtype), cache
+    return merge_dims(out, 2, 2) @ p["wo"].to(x.dtype), cache
 
 
 def init_xattn_cache(cfg: ModelConfig, batch: int, mem_len: int, *, device) -> dict:
@@ -207,7 +208,7 @@ def apply_mla(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
     scale = (nd + rd) ** -0.5
 
     q = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"])
-    q = (q @ p["wq_b"].to(x.dtype)).reshape(B, L, H, nd + rd)
+    q = split_dim(q @ p["wq_b"].to(x.dtype), -1, H, nd + rd)
     qn, qr_ = q[..., :nd], q[..., nd:]
 
     kv_a = x @ p["wkv_a"].to(x.dtype)
@@ -218,11 +219,11 @@ def apply_mla(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
         cos, sin = rope_freqs(ctx.positions, rd, cfg.rope_theta)
         qr_ = apply_rope(qr_, cos, sin)
         k_rope = apply_rope(k_rope, cos, sin)
-        kn = (ckv @ p["wk_b"].to(x.dtype)).reshape(B, L, H, nd)
-        v = (ckv @ p["wv_b"].to(x.dtype)).reshape(B, L, H, vd)
+        kn = split_dim(ckv @ p["wk_b"].to(x.dtype), -1, H, nd)
+        v = split_dim(ckv @ p["wv_b"].to(x.dtype), -1, H, vd)
         k = torch.cat([kn, k_rope.expand(B, L, H, rd)], -1)
         out = _attend(torch.cat([qn, qr_], -1), k, v, cfg, ctx, scale)
-        return out.reshape(B, L, H * vd) @ p["wo"].to(x.dtype), None
+        return merge_dims(out, 2, 2) @ p["wo"].to(x.dtype), None
 
     # ---- absorbed decode over the compressed cache -------------------------
     pos = ctx.pos
@@ -233,19 +234,19 @@ def apply_mla(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
     ckv_cache, kr_cache = cache["ckv"], cache["kr"]
     S = ckv_cache.shape[1]
     slot = _cache_slot(pos, S)
-    ckv_cache[:, slot] = ckv[:, 0].to(ckv_cache.dtype)
-    kr_cache[:, slot] = k_rope[:, 0, 0].to(kr_cache.dtype)
-    wk_b = p["wk_b"].to(x.dtype).reshape(kr, H, nd)
-    q_abs = torch.einsum("blhn,khn->blhk", qn, wk_b)  # [B, 1, H, kr]
+    write_at(ckv_cache, 1, slot, ckv[:, 0].to(ckv_cache.dtype))
+    write_at(kr_cache, 1, slot, k_rope[:, 0, 0].to(kr_cache.dtype))
+    wk_b = split_dim(p["wk_b"].to(x.dtype), -1, H, nd)
+    q_abs = unshard(torch.einsum("blhn,khn->blhk", qn, wk_b), 2)  # [B, 1, H, kr]
     logits = (torch.einsum("blhk,bsk->bhls", q_abs, ckv_cache)
-              + torch.einsum("blhr,bsr->bhls", qr_, kr_cache)).float() * scale
+              + torch.einsum("blhr,bsr->bhls", unshard(qr_, 2), kr_cache)).float() * scale
     mask = torch.arange(S, device=x.device) <= pos
     logits = logits.masked_fill(~mask, -1e30)
     w = torch.softmax(logits, dim=-1)
     out_c = torch.einsum("bhls,bsk->blhk", w.to(ckv_cache.dtype), ckv_cache)
-    wv_b = p["wv_b"].to(x.dtype).reshape(kr, H, vd)
+    wv_b = split_dim(p["wv_b"].to(x.dtype), -1, H, vd)
     out = torch.einsum("blhk,khv->blhv", out_c, wv_b)
-    y = out.reshape(B, 1, H * vd) @ p["wo"].to(x.dtype)
+    y = merge_dims(out, 2, 2) @ p["wo"].to(x.dtype)
     return y, {"ckv": ckv_cache, "kr": kr_cache}
 
 
@@ -423,17 +424,17 @@ def apply_mlstm(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
     the masked entries overflow to ``inf`` (the output does not see them)."""
     B, L, D = x.shape
     H, dh = cfg.num_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, L, H, dh)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, L, H, dh) * dh**-0.5
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, L, H, dh)
+    q = unshard(split_dim(x @ p["wq"].to(x.dtype), -1, H, dh), 2)
+    k = unshard(split_dim(x @ p["wk"].to(x.dtype), -1, H, dh), 2) * dh**-0.5
+    v = unshard(split_dim(x @ p["wv"].to(x.dtype), -1, H, dh), 2)
     gates = wide(x @ p["w_if"].to(x.dtype) + p["b_if"].to(x.dtype))
     i_raw, f_raw = gates[..., :H], gates[..., H:]  # [B, L, H]
     log_f = -_softplus(-f_raw)  # log sigmoid(f)
 
     if cache is None:
-        Fc = torch.cumsum(log_f, dim=1)  # [B, L, H]
+        Fc = replicated_apply(lambda t: torch.cumsum(t, dim=1), log_f)  # [B, L, H]
         a = i_raw - Fc  # i[s] - F[s]
-        amax = torch.cummax(a, dim=1).values
+        amax = replicated_apply(lambda t: torch.cummax(t, dim=1).values, a)
         # Dmat[t, s] = exp(F[t]-F[s]+i[s]-m[t]), m[t] = F[t] + amax[t]
         dmat = torch.exp(a[:, None] - amax[:, :, None])  # [B, t, s, H]
         t_idx = torch.arange(L, device=x.device)
@@ -456,7 +457,7 @@ def apply_mlstm(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
         num = torch.einsum("bhd,bhde->bhe", qh, C0)
         den = torch.maximum(torch.einsum("bhd,bhd->bh", qh, n0).abs(), torch.exp(-m1))
         h = (num / den[..., None]).to(x.dtype)[:, None]
-    h = rms_norm(h.reshape(B, -1, H * dh), p["ln_out"])
+    h = rms_norm(merge_dims(unshard(h, 2), 2, 2), p["ln_out"])
     return h @ p["wo"].to(x.dtype), cache
 
 
@@ -491,7 +492,7 @@ def _slstm_step(p, carry, xt, cfg: ModelConfig):
     c0, n0, h0, m0 = carry
     r = p["r"].to(h0.dtype)
     rec = torch.einsum("bhd,ghde->gbhe", h0, r)  # [4, B, H, dh]
-    pre = xt.reshape(xt.shape[0], 4, H, dh).transpose(0, 1) + rec
+    pre = split_dim(xt, -1, 4, H, dh).transpose(0, 1) + rec
     z = torch.tanh(pre[0])
     i_t, f_t, o_t = pre[1], pre[2], torch.sigmoid(pre[3])
     lf = -_softplus(-f_t)  # log sigmoid(f)
@@ -519,7 +520,7 @@ def apply_slstm(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
         for t in range(L):
             carry, h1 = _slstm_step(p, carry, pre[:, t], cfg)
             hs.append(h1)
-        h = torch.stack(hs, dim=1).reshape(B, L, H * dh).to(x.dtype)
+        h = merge_dims(torch.stack(hs, dim=1), 2, 2).to(x.dtype)
     else:
         carry, h1 = _slstm_step(p, (cache["c"], cache["n"], cache["h"], cache["m"]),
                                 pre[:, 0], cfg)

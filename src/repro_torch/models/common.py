@@ -9,6 +9,12 @@ expert products are three batched products over the ``[E, C, D]`` dispatch
 buffer, as in the reference, so that remat ``dots`` (which saves only the
 unbatched ``aten.mm`` outputs) recomputes them as the reference's
 ``dots_with_no_batch_dims_saveable`` does.
+
+On the mesh path the tensors are ``DTensor`` s, and the same code runs: the
+head splits and merges go through ``split_dim``/``merge_dims``, the
+attention operands through ``unshard``, and the gather cross-entropy
+replicates its logits (:mod:`repro_torch.distributed.context`), each the
+identity on a plain tensor.
 """
 
 from __future__ import annotations
@@ -17,6 +23,11 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.context import (
+    dp_spec, merge_dims, replicated, replicated_apply, shard_hint, split_dim, unshard,
+)
+from ..distributed.sharding import MODEL
 
 #: the dtype names a config may carry, as torch dtypes
 DTYPES = {
@@ -197,7 +208,8 @@ def causal_attention(q, k, v, *, scale: float, causal: bool = True,
     B, Lq, Hq, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    qg = q.reshape(B, Lq, Hkv, G, D)
+    q, k, v = unshard(q, 2), unshard(k, 2), unshard(v, 2)
+    qg = split_dim(q, 2, Hkv, G)
     sdt = torch.float32 if scores_f32 else q.dtype
     logits = torch.einsum("blhgd,bmhd->bhglm", qg.to(sdt), k.to(sdt))
     logits = logits * torch.tensor(scale, dtype=sdt)  # the scale rounded to sdt first
@@ -207,7 +219,7 @@ def causal_attention(q, k, v, *, scale: float, causal: bool = True,
         logits = logits.masked_fill(~mask, -30000.0)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhglm,bmhe->blhge", w.to(v.dtype), v)
-    return out.reshape(B, Lq, Hq, v.shape[-1])
+    return merge_dims(unshard(out, 2, 3), 2, 2)
 
 
 def chunked_causal_attention(q, k, v, *, scale: float, chunk: int,
@@ -250,7 +262,7 @@ def softmax_cross_entropy(logits, labels, z_loss: float = 1e-4,
         onehot_sel = torch.where(iota == labels[..., None], logits.float(), 0.0)
         ll = onehot_sel.sum(dim=-1)
     else:
-        logits = logits.float()
+        logits = replicated(logits).float()  # the DTensor gather of a sharded vocab fails
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     loss = lse - ll
@@ -344,7 +356,7 @@ def moe_slots(top_e: torch.Tensor, cfg: ModelConfig):
     se = flat_e[order]
     # counted by a scatter, not ``torch.bincount``, whose output size waits
     # for the largest index on the host
-    counts = torch.zeros(E, dtype=se.dtype, device=se.device).scatter_add_(
+    counts = torch.zeros(E, dtype=se.dtype, device=se.device).scatter_add(
         0, se, torch.ones_like(se))
     starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
     rank = torch.arange(S, device=top_e.device) - starts[se]
@@ -358,8 +370,12 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
     """Top-k token-choice MoE with sort-based dispatch and capacity drop.
 
     x [B, L, D] -> ([B, L, D], the load-balancing aux loss).  ``moe_hints``
-    constrains the EP placement of the dispatch buffer in the reference:
-    on one device there is nothing to constrain.
+    pins the dispatch buffer to expert-parallel placement and the output to
+    the batch's (:func:`~repro_torch.distributed.context.shard_hint`, the
+    identity without an active mesh).  The index buffers of the dispatch
+    are filled out of place (``scatter_add``, ``index_add``, ``index_put``):
+    on the mesh path they meet ``DTensor`` indices as replicated constants,
+    and DTensor has strategies for these forms in every torch release.
     """
     B, L, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
@@ -368,30 +384,37 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
     xt = x.reshape(T, D)
 
     probs, top_p, top_e = moe_route(p["router"], xt, cfg)
-    # aux load-balancing loss (Switch-style)
-    ones = torch.ones(T * K, dtype=torch.float32, device=x.device)
-    density = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
-        0, top_e.reshape(-1), ones) / (T * K)
+    # aux load-balancing loss (Switch-style); the integer bookkeeping runs
+    # on the whole of top_e (replicated on the mesh path)
+    def counts(e):
+        ones = torch.ones(T * K, dtype=torch.float32, device=e.device)
+        return torch.zeros(E, dtype=torch.float32, device=e.device).index_add(
+            0, e.reshape(-1), ones)
+
+    density = replicated_apply(counts, top_e) / (T * K)
     aux = E * torch.sum(density * probs.mean(0))
 
-    order, keep, slot, C = moe_slots(top_e, cfg)
+    order, keep, slot, C = replicated_apply(lambda e: moe_slots(e, cfg), top_e)
     S = T * K
     stok = torch.arange(T, device=x.device).repeat_interleave(K)[order]
     if cfg.moe_gather_dispatch:
         # integer index maps; the only repeated index is the sentinel E * C
-        inv_tok = torch.full((E * C + 1,), T, dtype=torch.int64, device=x.device)
-        inv_tok[slot] = stok
-        slot_tk = torch.full((S,), E * C, dtype=torch.int64, device=x.device)
-        slot_tk[order] = slot
+        def full(n, value):
+            return torch.full((n,), value, dtype=torch.int64, device=x.device)
+
+        inv_tok = full(E * C + 1, T).index_put((slot,), stok)
+        slot_tk = full(S, E * C).index_put((order,), slot)
         slot_tk = slot_tk.reshape(T, K)  # token -> its <= K slots
-        inv_flat = torch.full((E * C + 1,), S, dtype=torch.int64, device=x.device)
-        inv_flat[slot] = order
+        inv_flat = full(E * C + 1, S).index_put((slot,), order)
         xt1 = torch.cat([xt.to(cdt), xt.new_zeros((1, D), dtype=cdt)], 0)
         buf = _perm_gather(xt1, inv_tok[: E * C], slot_tk, 0).reshape(E, C, D)
     else:
         buf = torch.zeros((E * C + 1, D), dtype=cdt, device=x.device)
-        buf = buf.index_put((slot,), xt[stok].to(cdt))
+        # the scatter and the gathers below on replicated operands (GSPMD's all-gathers)
+        buf = buf.index_put((slot,), replicated(xt)[stok].to(cdt))
         buf = buf[: E * C].reshape(E, C, D)
+    if cfg.moe_hints:  # pin the dispatch buffer to expert-parallel placement
+        buf = shard_hint(buf, lambda m: (MODEL, None, None))
 
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(cdt)))
     h = h * torch.einsum("ecd,edf->ecf", buf, p["w_in"].to(cdt))
@@ -405,9 +428,11 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
         out = (z * top_p[..., None].to(z.dtype)).sum(1)
     else:
         sw = top_p.reshape(S)[order]
-        gathered = torch.where(keep[:, None], y_flat[slot.clamp(0, E * C - 1)], 0.0)
+        gathered = torch.where(keep[:, None], replicated(y_flat)[slot.clamp(0, E * C - 1)], 0.0)
         out = torch.zeros((T, D), dtype=cdt, device=x.device).index_add(
-            0, stok, gathered * sw[:, None].to(cdt))
+            0, stok, replicated(gathered * sw[:, None].to(cdt)))
+    if cfg.moe_hints:
+        out = shard_hint(out, lambda m: (dp_spec(m), None))
 
     if cfg.num_shared_experts:
         sh = p["shared"]

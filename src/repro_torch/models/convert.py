@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..distributed.checkpoint import named_leaves
+from ..distributed.checkpoint import _laid_out_as, named_leaves
 
 
 def load_params(model: nn.Module, tree) -> nn.Module:
@@ -27,7 +27,8 @@ def load_named(model: nn.Module, arrays: dict[str, Any]) -> nn.Module:
     """Copy ``arrays`` (``"a::b::c"`` name -> array) into ``model``'s
     parameters of the same names.  Refuses, naming them, a parameter that
     ``arrays`` lacks, an array that names no parameter, and an array of
-    another shape or dtype; nothing is copied then."""
+    another shape or dtype; nothing is copied then.  A ``DTensor``
+    parameter takes its own shard of its array."""
     params = dict(named_leaves(model))
     missing, extra = sorted(params.keys() - arrays.keys()), sorted(arrays.keys() - params.keys())
     if missing or extra:
@@ -42,5 +43,5 @@ def load_named(model: nn.Module, arrays: dict[str, Any]) -> nn.Module:
         raise ValueError(f"parameter tree does not match the model: {bad}")
     with torch.no_grad():
         for name, p in params.items():
-            p.copy_(tensors[name])
+            p.copy_(_laid_out_as(tensors[name], p))
     return model

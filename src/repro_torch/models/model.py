@@ -19,8 +19,11 @@ of the whole stack per period in backward); ``decode_step`` indexes them
 (``_at``) and writes its cache in place.  While gradients are recorded each
 period runs under ``torch.utils.checkpoint`` as ``remat``/``remat_policy``
 ask, the counterpart of ``jax.checkpoint`` (:func:`_remat`).  The sharding
-hints (``act_hints``, ``seq_parallel``) have nothing to constrain on one
-device.  MoE layers (``"moe" in lp``) replace the FFN and add their
+hints (``act_hints``, ``seq_parallel`` between periods, the vocab-sharded
+logits under ``logits_bf16_ce``) are
+:func:`~repro_torch.distributed.context.shard_hint` calls where the
+reference has them: the identity without an active mesh, a redistribution
+of the ``DTensor`` activations on the mesh path.  MoE layers (``"moe" in lp``) replace the FFN and add their
 load-balancing loss to the aux loss that ``forward`` returns, summed over
 the prologue and the periods as the reference sums it; decode drops it.
 The recurrent mixers (Mamba, mLSTM, sLSTM) keep an O(1) state in the
@@ -38,6 +41,8 @@ from typing import Any
 import torch
 from torch import nn
 
+from ..distributed.context import dp_spec, lookup, shard_hint
+from ..distributed.sharding import MODEL
 from .blocks import (
     MIXER_APPLY,
     MIXER_INIT,
@@ -228,6 +233,11 @@ def _apply_period(pp, x, cfg: ModelConfig, ctx: Ctx, caches):
         aux_total = _add_aux(aux_total, aux)
         if nc is not None:
             new_caches[f"l{i}"] = nc
+    if (cfg.act_hints or cfg.seq_parallel) and x.ndim == 3:
+        if cfg.seq_parallel:
+            x = shard_hint(x, lambda m: (dp_spec(m), MODEL, None))
+        else:
+            x = shard_hint(x, lambda m: (dp_spec(m), None, None))
     return x, (new_caches or None), aux_total
 
 
@@ -313,12 +323,16 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     The aux loss is the MoE load-balancing term summed over the MoE layers,
     a float32 0 in a model without one."""
     B, L = tokens.shape
-    x = params["embed"][tokens].to(cfg.cdtype)
+    x = lookup(params["embed"], tokens).to(cfg.cdtype)
     positions = torch.arange(L, device=tokens.device).expand(B, L)
     ctx = Ctx(positions=positions, memory=memory, causal=True)
     x, aux = _run_stack(params, x, cfg, ctx)
     logits = _head(params, cfg, x)
-    if not cfg.logits_bf16_ce:  # else kept in the compute dtype, as the reference keeps it
+    if cfg.logits_bf16_ce:
+        # kept in the compute dtype, model-sharded over the vocab axis; the
+        # iota-select cross-entropy never gathers the full vocabulary
+        logits = shard_hint(logits, lambda m: (dp_spec(m), None, MODEL))
+    else:
         logits = logits.float()
     return logits, aux
 
@@ -408,7 +422,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos
     returned cache is ``cache`` itself.
     """
     pos = int(pos)
-    x = params["embed"][tokens].to(cfg.cdtype)
+    x = lookup(params["embed"], tokens).to(cfg.cdtype)
     ctx = Ctx(pos=pos, memory=memory, causal=True)
     for lp, lc in zip(params.get("prologue", []), cache.get("prologue", [])):
         x = _apply_layer(lp, x, cfg, "attn", ctx, lc)[0]

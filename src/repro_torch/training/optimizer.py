@@ -61,8 +61,8 @@ def _map(fn, tree):
 
 
 def adamw_init(params) -> dict[str, Any]:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):  # laid out as p: a DTensor parameter's moments are DTensors
+        return torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
 
     step = torch.zeros((), dtype=torch.int32, device=next(iter(named_leaves(params)))[1].device)
     return {"m": _map(zeros, params), "v": _map(zeros, params), "step": step}

@@ -57,7 +57,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, microbatches: int | No
         leaves = [p for _, p in named_leaves(params)]
         if microbatches == 1:
             return grad_fn(params, leaves, batch)
-        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+        grads = [torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format) for p in leaves]
         for i in range(microbatches):
             part, metrics = grad_fn(params, leaves, micro(batch, i))
             for acc, g in zip(grads, part):

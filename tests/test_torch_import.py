@@ -31,7 +31,8 @@ def test_every_module_imports_with_jax_blocked():
                           env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, leaked = proc.stdout.split(maxsplit=1)
-    assert int(count) >= 20 + len(SERVING_SLICE) + len(LM_SLICE) + len(TRAINING_SLICE) - 1
+    assert int(count) >= 20 + len(SERVING_SLICE) + len(LM_SLICE) + len(TRAINING_SLICE) - 1 + \
+        len(MESH_SLICE)
     assert leaked.strip() == "[]"
 
 
@@ -59,7 +60,16 @@ TRAINING_SLICE = [
 ]
 
 
-@pytest.mark.parametrize("module", SERVING_SLICE + LM_SLICE + TRAINING_SLICE)
+#: the sharding rules, mesh hints, gradient compression, production mesh,
+#: abstract specs and the dry run
+MESH_SLICE = [
+    "repro_torch.distributed.sharding", "repro_torch.distributed.context",
+    "repro_torch.distributed.compression", "repro_torch.launch.mesh",
+    "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+]
+
+
+@pytest.mark.parametrize("module", SERVING_SLICE + LM_SLICE + TRAINING_SLICE + MESH_SLICE)
 def test_serving_slice_imports_with_jax_blocked(module):
     code = (
         "import importlib, sys\n"

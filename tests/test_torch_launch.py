@@ -10,15 +10,16 @@ its ``--restore-from-tape`` line is the reference's but for the times, and at
 full width the archive raises the reference's ``tape ... full``.  It serves
 every architecture, the two with cross-attention against zero cross caches
 as the reference does.  The port's launcher runs on the card by default,
-never falls back to another backend, and refuses by name the meshes it does
-not have yet.
+never falls back to another backend; ``--mesh pod|multipod`` without the
+ranks for it raises the reference's ``RuntimeError``.
 
 The training launcher (``python -m repro_torch.launch.train``) trains on the
 CPU with ``--device cpu`` and prints the reference launcher's lines: the
 mesh and parameter lines and every step's learning rate exactly, the loss
 and gradient norm as numbers (the two draw different weights from one
 seed); its checkpoint resumes at the step the reference's resumes at.  It
-too runs on the card by default and exits 2 on ``--mesh pod|multipod``.
+too runs on the card by default and raises the reference's ``RuntimeError``
+on ``--mesh pod|multipod`` here (one rank, no process group).
 """
 
 import math
@@ -166,10 +167,19 @@ def test_int32_guard_failure_raises_without_fallback(capsys):
         [row.split(",")[cells] for row in table(python_out)][1:]
 
 
-@pytest.mark.parametrize("args", [["--mesh", "pod"], ["--mesh", "multipod"]])
-def test_lm_modes_exit_nonzero(args, capsys):
-    assert port_serve.main(args) == 2
-    assert "ROADMAP item A9.6" in capsys.readouterr().err
+def mesh_error(kind: str) -> str:
+    """The reference's ``_auto_mesh`` error on this one-device CPU, up to
+    its hint (``XLA_FLAGS`` there, ``torchrun`` in the port)."""
+    with pytest.raises(RuntimeError) as err:
+        ref_train._auto_mesh(kind)
+    return str(err.value).split(" (")[0]
+
+
+@pytest.mark.parametrize("kind", ["pod", "multipod"])
+def test_lm_modes_raise_the_references_mesh_error(kind):
+    with pytest.raises(RuntimeError) as err:
+        port_serve.main(["--mesh", kind, "--reduced", "--tape-device", "cpu"])
+    assert str(err.value).split(" (")[0] == mesh_error(kind)
 
 
 LM_ARGS = ["--reduced", "--batch", "2", "--prompt-len", "4", "--new-tokens", "4"]
@@ -406,10 +416,13 @@ def test_train_launcher_trains_the_cross_attention_archs_on_the_cpu(arch, tmp_pa
     check_train_launcher_trains(arch, tmp_path, capsys)
 
 
-@pytest.mark.parametrize("args", [["--mesh", "pod"], ["--mesh", "multipod"]])
-def test_train_launcher_exits_2_on_what_the_port_lacks(args, capsys):
-    assert port_train.main(args) == 2
-    assert "ROADMAP item A9.6" in capsys.readouterr().err
+@pytest.mark.parametrize("kind", ["pod", "multipod"])
+def test_train_launcher_raises_the_references_mesh_error(kind):
+    """With the default device too: the mesh is built before the device is
+    checked, as the reference builds it before initialising."""
+    with pytest.raises(RuntimeError) as err:
+        port_train.main(["--mesh", kind])
+    assert str(err.value).split(" (")[0] == mesh_error(kind)
 
 
 def test_train_launcher_defaults_to_the_card():

@@ -31,8 +31,10 @@ the step.  The two cross-attention archs (Llama-3.2-Vision, SeamlessM4T)
 take their frontend's embeddings, drawn from one seed: the forward reads
 the memory (Seamless's through its encoder), decode the cross caches
 ``warm_cross_cache`` fills from it, the train step's batch carries the
-embeddings; they are held to the dense decoders' bounds.  Run them on a
-card with ``pytest -m cuda tests/test_torch_lm_device.py``.
+embeddings; they are held to the dense decoders' bounds.  The mesh path
+at world 1 (a NCCL group of one rank, every parameter, moment, batch and
+cache a ``DTensor``) is held to the plain path on the card bit for bit.
+Run them on a card with ``pytest -m cuda tests/test_torch_lm_device.py``.
 """
 
 import copy
@@ -217,3 +219,67 @@ def test_cuda_train_step_matches_cpu(arch, remat, overrides, cuda_device):
         diff = (a.detach().cpu() - b.detach()).abs()
         assert bool((diff <= atol).all()), (name, float(diff.max()),
                                             int((diff > atol).sum()))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-v2-236b"])
+def test_cuda_mesh_path_at_world_one_equals_the_plain_path(arch, cuda_device, tmp_path):
+    """The mesh path on the card at world 1 (a NCCL group of one rank over a
+    ``FileStore``, the ``{'data': 1, 'model': 1}`` mesh): every parameter and
+    moment a ``DTensor``, two train steps and greedy decoding against the
+    plain path.  Each rank's shard is the whole tensor, so the forward runs
+    the same kernels on the same data: the first loss and the tokens are
+    equal bit for bit.  A few gradients DTensor reduces in another order (a
+    bias summed over batch and sequence, the tied embedding's two products;
+    measured at float32 rounding, 9.3e-10 on the CPU), so the parameters
+    after the steps are held within 2e-5, as the training tests hold them,
+    and the second loss within ``rtol = 1e-6``."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.context import mesh_scope
+    from repro_torch.distributed.sharding import (
+        batch_pspecs, cache_pspecs, dp_axes, full_tree, param_pspecs, place, place_tree)
+    from repro_torch.launch.train import _auto_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = _auto_mesh("auto")
+        assert dict(zip(mesh.mesh_dim_names, mesh.shape)) == {"data": 1, "model": 1}
+        cfg, cpu = cpu_model(arch)
+        plain, sharded = on_card(cpu, cuda_device, True), on_card(cpu, cuda_device, True)
+        place_tree(sharded, param_pspecs(sharded), mesh)
+        opts = [adamw_init(plain), adamw_init(sharded)]
+        step = make_train_step(cfg, OptConfig(warmup_steps=1, total_steps=10))
+        for n in range(2):
+            batch = {"tokens": tokens_of(cfg, (4, 16)).roll(n, 1).to(cuda_device)}
+            _, _, want = step(plain, opts[0], batch)
+            with mesh_scope(mesh):
+                _, _, got = step(sharded, opts[1], place_tree(batch, batch_pspecs(batch, mesh),
+                                                              mesh))
+            if n == 0:
+                assert float(got["loss"].full_tensor()) == float(want["loss"])
+            else:
+                np.testing.assert_allclose(float(got["loss"].full_tensor()),
+                                           float(want["loss"]), rtol=1e-6)
+        for (name, a), (_, b) in zip(named_leaves(full_tree(sharded)), named_leaves(plain)):
+            torch.testing.assert_close(a, b.detach(), rtol=0, atol=2e-5, msg=name)
+        serve = make_serve_step(cfg)
+        prompts = tokens_of(cfg, (2, 6)).to(cuda_device)
+        out = []
+        for model, on_mesh in ((plain, False), (sharded, True)):
+            model.requires_grad_(False)
+            cache = init_cache(cfg, 2, 12, device=cuda_device)
+            toks = prompts
+            if on_mesh:
+                cache = place_tree(cache, cache_pspecs(cache, mesh), mesh)
+                toks = place(prompts, (dp_axes(mesh), None), mesh)
+            with mesh_scope(mesh if on_mesh else None):
+                seq = []
+                for t in range(10):
+                    tok, _, cache = serve(model, cache, toks[:, t:t + 1] if t < 6 else tok, t)
+                    seq.append(tok)
+                seq = torch.cat(seq, 1)
+            out.append(seq.full_tensor() if on_mesh else seq)
+        assert torch.equal(out[0], out[1])
+    finally:
+        dist.destroy_process_group()
