@@ -56,11 +56,13 @@ trained at full width through the training launcher's loop.  Phase 14 runs
 the mesh path on the card's world of one rank (a NCCL group over a
 ``FileStore``): 14a Qwen2.5-3B trained at full width on the plain path and
 on the mesh path, every parameter and moment a ``DTensor``, held equal bit
-for bit; 14b its bf16 serving on both, the cache placed by
-``cache_pspecs``, greedy tokens held equal; 14c ``--mesh pod|multipod``
-raising the reference's ``RuntimeError`` and ``compressed_grads`` on the
-trained model's gradients; 14d one dry-run cell on the CPU.  Every phase
-fails the run on any mismatch.
+for bit, and the dry run's tracker (arguments plus temporaries of the
+step, on ``meta`` tensors on the CPU) within 10% of the allocator's
+high-water mark over one step on each path; 14b its bf16 serving on both,
+the cache placed by ``cache_pspecs``, greedy tokens held equal; 14c
+``--mesh pod|multipod`` raising the reference's ``RuntimeError`` and
+``compressed_grads`` on the trained model's gradients; 14d one dry-run
+cell on the CPU.  Every phase fails the run on any mismatch.
 
 Usage, from the root of a checkout, on a machine with a CUDA card::
 
@@ -349,10 +351,11 @@ TRAIN_SEAMLESS_TIMED_FROM = 3
 
 #: phase 14: the mesh path on the card's world of one rank (a NCCL group over
 #: a FileStore under build/): Qwen2.5-3B trained at full width 5 steps at
-#: 4 x 512 on the plain path and on the mesh path (14a), served bf16 at batch
-#: 8 with the cache placed by cache_pspecs (14b), the production meshes and
-#: the gradient compressors on 14a's last gradients (14c), and one dry-run
-#: cell on the CPU (14d)
+#: 4 x 512 on the plain path and on the mesh path, the dry run's step
+#: memory at world 1 against the card's allocator on one such step (14a),
+#: served bf16 at batch 8 with the cache placed by cache_pspecs (14b), the
+#: production meshes and the gradient compressors on 14a's last gradients
+#: (14c), and one dry-run cell on the CPU (14d)
 MESH_TRAIN = ["--arch", LM_ARCH, "--steps", "5", "--batch", "4", "--seq", "512",
               "--ckpt-every", "1000"]
 MESH_SERVE = dict(batch=8, prompt=8, new=16)
@@ -2186,8 +2189,10 @@ def mesh_training(dev: str, store: Path) -> dict:
     loop (``launch.train.train``), first on the plain path, then with a
     process group of one rank up, on the mesh path: every parameter and
     moment a ``DTensor`` on the ``{'data': 1, 'model': 1}`` mesh.  Losses and
-    final parameters must be equal bit for bit.  Returns the mesh path's
-    config, parameters and optimizer state."""
+    final parameters must be equal bit for bit.  On each path the
+    allocator's high-water mark over one more step is read, for
+    :func:`check_step_memory`.  Returns the mesh path's config, parameters
+    and optimizer state, and each path's measurements."""
     import statistics
 
     import numpy as np
@@ -2223,11 +2228,19 @@ def mesh_training(dev: str, store: Path) -> dict:
                                                          cfg.vocab_size - 1), dev)
         if mesh_path:
             batch = place_tree(batch, batch_pspecs(batch, out["mesh"]), out["mesh"])
+        peak = torch.cuda.max_memory_allocated()
+        # the allocator's high-water mark over this one step, against the tracker
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        step_in(out["mesh"], step, params, opt, batch)
+        torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated()
         split = profiled_ops(lambda: step_in(out["mesh"], step, params, opt, batch))
         secs = [h["seconds"] for h in out["history"][1:]]
         return out, {"wall": wall, "step_ms": 1e3 * statistics.median(secs),
                      "min_ms": 1e3 * min(secs), "max_ms": 1e3 * max(secs),
-                     "peak": torch.cuda.max_memory_allocated(), "split": split}
+                     "peak": peak, "held": held, "step_peak": step_peak, "split": split}
 
     if dist.is_initialized():
         raise SystemExit("phase 14a FAILED: a process group is up before the plain run")
@@ -2268,7 +2281,66 @@ def mesh_training(dev: str, store: Path) -> dict:
             f"device memory {t['peak'] / 2**30:.3f} GiB; profiled step {sp['wall_ms']:.3f} ms "
             f"wall, {sp['kernel_ms']:.3f} ms of kernel time, {sp['kernels']:.0f} kernels and "
             f"{sp['ops']:.0f} aten operators")
-    return mesh_run
+    return mesh_run, {"plain": plain_t, "mesh": mesh_t}
+
+
+#: phase 14a's tracker: the dry run's per-device memory of 14a's step at
+#: world 1, on ``meta`` tensors in a CPU process, on the plain path and on a
+#: one-rank mesh of the ``fake`` backend
+STEP_MEMORY_CODE = """
+import json, sys
+from repro_torch.configs import InputShape
+from repro_torch.launch import dryrun
+from repro_torch.launch import train as launch_train
+
+args = launch_train.build_parser().parse_args(sys.argv[1:] + ["--device", "cpu"])
+cfg = launch_train.make_config(args)
+shape = InputShape("train_step", args.seq, args.batch, "train")
+dryrun.start_fake_group(1)
+print(json.dumps({name: dryrun.analyse(cfg, shape, mesh)["memory"] for name, mesh in
+                  (("plain", None), ("mesh", launch_train._auto_mesh("auto", "cpu")))}))
+"""
+#: the most the card's high-water mark over a step may differ from the
+#: tracker's arguments + temporaries, as a fraction of the tracker's
+STEP_MEMORY_REL = 0.10
+
+
+def step_memory_tracker(work: Path) -> subprocess.Popen:
+    """Phase 14a's tracker run, started in a CPU process of its own that
+    writes ``work/tracker.out`` and ``work/tracker.err``."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    with open(work / "tracker.out", "w") as out, open(work / "tracker.err", "w") as err:
+        return subprocess.Popen([sys.executable, "-c", STEP_MEMORY_CODE, *MESH_TRAIN],
+                                stdout=out, stderr=err, env=env, cwd=ROOT)
+
+
+def check_step_memory(tracker: subprocess.Popen, work: Path, measured: dict) -> None:
+    """Phase 14a: the tracker's world-1 peak (the step's arguments plus its
+    temporaries, computed on the CPU) against the card allocator's
+    ``max_memory_allocated`` over one step of 14a, on each path."""
+    try:
+        code = tracker.wait(timeout=MESH_DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"phase 14a FAILED: the tracker took over {MESH_DRYRUN_TIMEOUT} s")
+    if code != 0:
+        raise SystemExit(f"phase 14a FAILED: the tracker exited {code}: "
+                         f"{(work / 'tracker.err').read_text()[-2000:]}")
+    predicted = json.loads((work / "tracker.out").read_text().splitlines()[-1])
+    for name, t in measured.items():
+        mem = predicted[name]
+        want = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        ratio = t["step_peak"] / want
+        log(f"phase 14a: {name} path, one step at 4 x 512: tracker (computed on the CPU, "
+            f"meta tensors, world 1) arguments {mem['argument_size_in_bytes']} B + "
+            f"temporaries {mem['temp_size_in_bytes']} B = {want} B ({want / 2**30:.3f} GiB); "
+            f"card max_memory_allocated {t['step_peak']} B ({t['step_peak'] / 2**30:.3f} GiB), "
+            f"{t['held']} B held before the step; measured / tracker {ratio:.4f} on "
+            f"{card_line()}")
+        if abs(ratio - 1) > STEP_MEMORY_REL:
+            raise SystemExit(f"phase 14a FAILED: {name} path: the card's step peak is "
+                             f"{ratio:.4f} x the tracker's (bound {STEP_MEMORY_REL})")
 
 
 def mesh_compression(run: dict, dev: str) -> None:
@@ -2460,15 +2532,17 @@ def mesh_dryrun() -> None:
         mem = rec["memory"]
         log(f"phase 14d: {name}: per device (computed on the CPU, not measured on a card) "
             f"arguments {mem['argument_size_in_bytes']} B, outputs "
-            f"{mem['output_size_in_bytes']} B, {rec['flops']:.6g} FLOP of products, "
+            f"{mem['output_size_in_bytes']} B, temporaries {mem['temp_size_in_bytes']} B "
+            f"({mem['temp_size_in_bytes'] / 2**30:.3f} GiB), {rec['bytes_accessed']} B "
+            f"accessed (unfused), {rec['flops']:.6g} FLOP of products, "
             f"collectives {json.dumps(rec['collectives'])} B ({rec['collective_bytes']:.6g} B), "
             f"step run in {rec['full_compile_s']} s")
     log(f"phase 14d: dry run of {LM_ARCH} train_4k on both meshes exit 0 in {wall:.3f} s")
 
 
 def mesh_path(dev: str, phases: dict) -> None:
-    """Phase 14, each part timed into ``phases``; the process group it
-    starts is destroyed whatever fails."""
+    """Phase 14, each part timed into ``phases``; the process group and the
+    tracker process it starts are stopped whatever fails."""
     import shutil
 
     import torch.distributed as dist
@@ -2476,9 +2550,11 @@ def mesh_path(dev: str, phases: dict) -> None:
     work = ROOT / "build" / "chip_smoke_mesh"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    tracker = step_memory_tracker(work)
     try:
         t0 = time.perf_counter()
-        run = mesh_training(dev, work / "store")
+        run, measured = mesh_training(dev, work / "store")
+        check_step_memory(tracker, work, measured)
         phases["14a Qwen2.5-3B trained on the mesh path"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         mesh_compression(run, dev)
@@ -2488,6 +2564,9 @@ def mesh_path(dev: str, phases: dict) -> None:
         mesh_serving(dev)
         phases["14b Qwen2.5-3B served on the mesh path"] = time.perf_counter() - t0
     finally:
+        if tracker.poll() is None:
+            tracker.kill()
+            tracker.wait()
         if dist.is_initialized():
             dist.destroy_process_group()
     t0 = time.perf_counter()

@@ -107,6 +107,33 @@ def replicated(x: torch.Tensor) -> torch.Tensor:
     return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
+class _ReplicatedGrad(torch.autograd.Function):
+    """The identity, whose backward replicates the gradient."""
+
+    @staticmethod
+    def forward(x):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return replicated(g)
+
+
+def replicated_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient replicated over the mesh before it
+    reaches the operation that made ``x``: the index operations of the dense
+    MoE dispatch, whose backward on a sharded or partial gradient DTensor
+    gets wrong in torch 2.11 (``index_add``'s source gradient) and which on
+    replicated operands run locally.  A plain tensor as it is."""
+    if not is_sharded(x):
+        return x
+    return _ReplicatedGrad.apply(x)
+
+
 def _unsharded(x: torch.Tensor, dims: set[int]) -> torch.Tensor:
     from torch.distributed.tensor import Replicate
 

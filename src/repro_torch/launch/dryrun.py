@@ -9,27 +9,39 @@ on ``meta`` tensors placed as ``DTensor`` s by the sharding rules: that
 proves the shardings divide and the step runs.  Each cell writes the
 reference's JSON keys under ``results/dryrun/``:
 
-* ``memory``: ``argument_size_in_bytes`` and ``output_size_in_bytes`` per
-  device, summed over the local shards of the step's arguments and outputs;
-  ``temp_size_in_bytes`` and ``generated_code_size_in_bytes`` are ``null``:
-  they describe XLA's compiled buffer assignment and code, and eager torch
-  has neither;
+* ``memory``: per device, ``argument_size_in_bytes`` and
+  ``output_size_in_bytes``, summed over the local shards of the step's
+  arguments and outputs, and ``temp_size_in_bytes``, the high-water mark of
+  the bytes held by the storages that the local operations create during
+  the step, other than the outputs' (:class:`LocalCost`): each storage
+  counts once, from the operation that creates it until it dies, so views
+  and in-place updates add nothing, and the activations that autograd saves,
+  the remat recompute and the gradients count as they come and go.  It
+  counts what eager torch allocates, not XLA's buffer assignment; on the
+  card the step's peak is about arguments + outputs + temporaries.
+  ``generated_code_size_in_bytes`` is ``null``: eager torch compiles no
+  code;
 * ``flops``: per device, the products' floating-point operations
   (``torch.utils.flop_counter``'s formulas: matrix products, attention,
   convolutions; not the elementwise work XLA's cost analysis also counts)
   over the local shards, counted at full depth: eager torch runs every layer,
   so the reference's two-point depth extrapolation is not needed
   (``flops_scanned`` and ``collectives_scanned``, the scanned compile's
-  counts, are ``null``); ``bytes_accessed`` is ``null``: XLA's post-fusion
-  bytes have no eager counterpart;
+  counts, are ``null``); ``bytes_accessed``, per device, the bytes each
+  local operation reads and writes (its tensor inputs' bytes plus its
+  outputs'; a view or metadata operation counts nothing, a mutated argument
+  is read once and written once), summed.  That is an unfused count: an
+  upper bound on XLA's post-fusion "bytes accessed", and not comparable
+  with the reference's, as the flops are not;
 * ``collectives``: bytes moved per device by each collective the
   redistributions issue, recorded as DTensor's functional collectives reach
   the local tensors (their size and group), under the reference's ring
-  model (:func:`ring_bytes`).
+  model (:func:`ring_bytes`).  They are not in ``bytes_accessed``.
 
 ``full_compile_s`` is the seconds of the full-depth step run (there is no
 compile).  A decode cell runs at position ``seq_len - 1``.  The numbers are
-computed on the host; no device runs.
+computed on the host; no device runs.  With ``mesh=None``,
+:func:`analyse` runs the plain step of one device (no ``DTensor``).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b \
       --shape train_4k --mesh both
@@ -43,8 +55,10 @@ import json
 import pathlib
 import time
 import traceback
+import weakref
 
 import torch
+from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -104,17 +118,50 @@ _COLLECTIVES = {
 }
 
 
+#: operations that allocate without reading or writing any element
+_UNTOUCHED = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided"}
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    return [t for t in pytree.tree_leaves(tree)
+            if isinstance(t, torch.Tensor) and t.layout == torch.strided]
+
+
 class LocalCost(TorchDispatchMode):
     """Counts what the local shards do: the flops of each local operation
-    (``torch.utils.flop_counter``'s formulas) and the bytes of each
-    functional collective.  A ``DTensor`` operation is handed on to DTensor
+    (``torch.utils.flop_counter``'s formulas), the bytes it reads and
+    writes, the bytes of each functional collective, and the storages it
+    creates.  A ``DTensor`` operation is handed on to DTensor
     (``NotImplemented``), which then runs its local operations and
-    collectives under this mode."""
+    collectives under this mode; so does autograd's backward, on whatever
+    thread it runs (a dispatch mode is part of the state autograd carries
+    into its threads).
 
-    def __init__(self):
+    A storage is known by ``untyped_storage()``, which every view of it
+    shares: the first operation that outputs a storage not known yet creates
+    it, and it lives until torch frees it (a weak reference says when).
+    The arguments' storages (``args``) are known from the start, so their
+    in-place updates and views create nothing.  :meth:`temp_bytes` is the
+    high-water mark of the created storages' bytes."""
+
+    def __init__(self, args=()):
         super().__init__()
         self.flops = 0
+        self.bytes_accessed = 0
         self.collectives: dict[str, float] = {}
+        self._clock = 0
+        #: storage -> None for an argument's, [bytes, born, died] for a created one
+        self._known = weakref.WeakKeyDictionary()
+        self._made: list[list] = []
+        for t in _tensors(args):
+            self._known[t.untyped_storage()] = None
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def _died(self, rec: list) -> None:
+        rec[2] = self._tick()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -124,40 +171,79 @@ class LocalCost(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if any(issubclass(t, FakeTensor) for t in types):
+        outs = _tensors(out)
+        if any(issubclass(t, FakeTensor) for t in types) or \
+                any(isinstance(t, FakeTensor) for t in outs):
             return out  # DTensor's shape propagation on global fake tensors, not local work
         packet = func._overloadpacket
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
-        if func.namespace == "_c10d_functional" and packet.__name__ in _COLLECTIVES:
-            op, size_of = _COLLECTIVES[packet.__name__]
-            group = _group_size(args[-1])
-            moved = ring_bytes(op, size_of(_nbytes(args[0]), group), group)
-            self.collectives[op] = self.collectives.get(op, 0.0) + moved
+        ins = _tensors((args, kwargs))
+        if func.namespace == "_c10d_functional":
+            if packet.__name__ in _COLLECTIVES:
+                op, size_of = _COLLECTIVES[packet.__name__]
+                group = _group_size(args[-1])
+                moved = ring_bytes(op, size_of(_nbytes(args[0]), group), group)
+                self.collectives[op] = self.collectives.get(op, 0.0) + moved
+        elif not _moves_no_data(func, ins, outs):
+            self.bytes_accessed += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+        for t in outs:
+            storage = t.untyped_storage()
+            if storage not in self._known:
+                rec = [storage.nbytes(), self._tick(), None]
+                self._known[storage] = rec
+                self._made.append(rec)
+                weakref.finalize(storage, self._died, rec).atexit = False
         return out
 
+    def temp_bytes(self, outputs=()) -> int:
+        """The high-water mark of the bytes of the storages created so far
+        and alive together, the storages of ``outputs`` left out."""
+        kept = {id(self._known.get(t.untyped_storage())) for t in _tensors(outputs)}
+        events = sorted((tick, size) for size, born, died in
+                        (r for r in self._made if id(r) not in kept)
+                        for tick, size in ((born, size), (died, -size)) if tick is not None)
+        live = peak = 0
+        for _, size in events:
+            live += size
+            peak = max(peak, live)
+        return peak
 
-def _local_bytes(tree) -> int:
+
+def _moves_no_data(func, ins, outs) -> bool:
+    """A view or metadata operation: it allocates without touching an
+    element, or every output is an input's storage and nothing is written."""
+    if func.is_view or func._overloadpacket.__name__ in _UNTOUCHED:
+        return True
+    if func._schema.is_mutable:
+        return False
+    storages = {id(t.untyped_storage()) for t in ins}
+    return bool(outs) and all(id(t.untyped_storage()) in storages for t in outs)
+
+
+def _local_leaves(tree) -> list[torch.Tensor]:
     from torch.distributed.tensor import DTensor
 
-    total = 0
-    for _, leaf in named_leaves(tree):
-        if isinstance(leaf, torch.Tensor):
-            total += _nbytes(leaf.to_local() if isinstance(leaf, DTensor) else leaf)
-    return total
+    return [leaf.to_local() if isinstance(leaf, DTensor) else leaf
+            for _, leaf in named_leaves(tree) if isinstance(leaf, torch.Tensor)]
 
 
 def _step_and_args(cfg, shape, mesh):
-    """(fn, placed arguments) of the cell's step."""
+    """(fn, arguments) of the cell's step, placed over ``mesh`` (plain
+    tensors with ``mesh=None``)."""
     specs = input_specs(cfg, shape)
+
+    def lay(tree, pspecs_of):
+        return tree if mesh is None else place_tree(tree, pspecs_of(tree), mesh)
+
     pspecs = param_pspecs(specs["params"])
-    params = place_tree(specs["params"], pspecs, mesh)
+    params = lay(specs["params"], lambda _: pspecs)
     if shape.kind == "train":
         params.requires_grad_(True)
         opt = specs["opt_state"]
-        opt = {"m": place_tree(opt["m"], pspecs, mesh), "v": place_tree(opt["v"], pspecs, mesh),
+        opt = {"m": lay(opt["m"], lambda _: pspecs), "v": lay(opt["v"], lambda _: pspecs),
                "step": opt["step"]}
-        batch = place_tree(specs["batch"], batch_pspecs(specs["batch"], mesh), mesh)
+        batch = lay(specs["batch"], lambda b: batch_pspecs(b, mesh))
         return make_train_step(cfg, OptConfig()), (params, opt, batch)
     if shape.kind == "prefill":
         def prefill(params, batch):
@@ -168,40 +254,48 @@ def _step_and_args(cfg, shape, mesh):
                 memory = batch["vision_embeds"]
             return forward(params, cfg, batch["tokens"], memory=memory)[0]
 
-        batch = place_tree(specs["batch"], batch_pspecs(specs["batch"], mesh), mesh)
-        return prefill, (params, batch)
+        return prefill, (params, lay(specs["batch"], lambda b: batch_pspecs(b, mesh)))
 
     def serve(params, cache, tokens, pos):
         logits, cache = decode_step(params, cfg, tokens, cache, pos)
         return torch.argmax(logits[:, -1], dim=-1), cache
 
-    cache = place_tree(specs["cache"], cache_pspecs(specs["cache"], mesh), mesh)
-    tokens = place(specs["tokens"], (dp_axes(mesh), None), mesh)
+    cache = lay(specs["cache"], lambda c: cache_pspecs(c, mesh))
+    tokens = specs["tokens"] if mesh is None else place(specs["tokens"], (dp_axes(mesh), None),
+                                                       mesh)
     return serve, (params, cache, tokens, shape.seq_len - 1)
 
 
-def analyse(cfg, shape, mesh) -> dict:
-    """Run one cell's step on ``mesh``; its per-device memory, flops and
-    collectives."""
-    fn, args = _step_and_args(cfg, shape, mesh)
-    arg_bytes = _local_bytes(list(args))
-    cost = LocalCost()
+def run_step(fn, args, mesh, grad: bool) -> dict:
+    """``fn(*args)`` run under :class:`LocalCost` (and ``mesh_scope(mesh)``);
+    its seconds, per-device memory, flops, bytes accessed and collectives."""
+    leaves = _local_leaves(list(args))
+    cost = LocalCost(leaves)
     t0 = time.time()
     # the cost mode below mesh_scope's: a DTensor operation reaches it after
     # its constants were replicated, and is handed on to DTensor from there
-    with cost, mesh_scope(mesh), torch.set_grad_enabled(shape.kind == "train"):
+    with cost, mesh_scope(mesh), torch.set_grad_enabled(grad):
         out = fn(*args)
     seconds = time.time() - t0
+    outs = _local_leaves(list(out) if isinstance(out, tuple) else [out])
     return {
         "seconds": seconds,
-        "memory": {"argument_size_in_bytes": arg_bytes,
-                   "output_size_in_bytes": _local_bytes(
-                       list(out) if isinstance(out, tuple) else [out]),
-                   "temp_size_in_bytes": None,
+        "memory": {"argument_size_in_bytes": sum(map(_nbytes, leaves)),
+                   "output_size_in_bytes": sum(map(_nbytes, outs)),
+                   "temp_size_in_bytes": cost.temp_bytes(outs),
                    "generated_code_size_in_bytes": None},
         "flops": float(cost.flops),
+        "bytes_accessed": cost.bytes_accessed,
         "collectives": cost.collectives,
     }
+
+
+def analyse(cfg, shape, mesh) -> dict:
+    """Run one cell's step on ``mesh`` (one device's plain step with
+    ``mesh=None``); its per-device memory, flops, bytes accessed and
+    collectives."""
+    fn, args = _step_and_args(cfg, shape, mesh)
+    return run_step(fn, args, mesh, shape.kind == "train")
 
 
 def mesh_name(multi_pod: bool) -> str:
@@ -236,7 +330,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: pathlib.Path,
             full_compile_s=round(full["seconds"], 2),
             n_periods=cfg.n_periods,
             flops=full["flops"],
-            bytes_accessed=None,
+            bytes_accessed=full["bytes_accessed"],
             flops_scanned=None,
             memory=full["memory"],
             collectives=colls,
@@ -246,7 +340,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: pathlib.Path,
         mem = full["memory"]
         print(f"PASS {arch} {shape_name} {name} ({rec['total_s']:.0f}s flops={rec['flops']:.3g} "
               f"coll={rec['collective_bytes']:.3g}B args={mem['argument_size_in_bytes']/2**30:.2f}GiB "
-              f"out={mem['output_size_in_bytes']/2**30:.2f}GiB per device)")
+              f"out={mem['output_size_in_bytes']/2**30:.2f}GiB "
+              f"temp={mem['temp_size_in_bytes']/2**30:.2f}GiB per device)")
     except Exception:
         rec["error"] = traceback.format_exc()
         print(f"FAIL {arch} {shape_name} {name}")

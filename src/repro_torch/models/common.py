@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.context import (
-    dp_spec, merge_dims, replicated, replicated_apply, shard_hint, split_dim, unshard,
+    dp_spec, merge_dims, replicated, replicated_apply, replicated_grad, shard_hint, split_dim,
+    unshard,
 )
 from ..distributed.sharding import MODEL
 
@@ -410,8 +411,10 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
         buf = _perm_gather(xt1, inv_tok[: E * C], slot_tk, 0).reshape(E, C, D)
     else:
         buf = torch.zeros((E * C + 1, D), dtype=cdt, device=x.device)
-        # the scatter and the gathers below on replicated operands (GSPMD's all-gathers)
-        buf = buf.index_put((slot,), replicated(xt)[stok].to(cdt))
+        # the scatter and the gathers below on replicated operands (GSPMD's
+        # all-gathers), their gradients replicated too
+        xs = replicated_grad(replicated(xt)[stok]).to(cdt)
+        buf = replicated_grad(buf.index_put((slot,), xs))
         buf = buf[: E * C].reshape(E, C, D)
     if cfg.moe_hints:  # pin the dispatch buffer to expert-parallel placement
         buf = shard_hint(buf, lambda m: (MODEL, None, None))
@@ -427,10 +430,11 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
         z = _perm_gather(y1, slot_tk.reshape(-1), inv_flat[: E * C], -1).reshape(T, K, D)
         out = (z * top_p[..., None].to(z.dtype)).sum(1)
     else:
-        sw = top_p.reshape(S)[order]
-        gathered = torch.where(keep[:, None], replicated(y_flat)[slot.clamp(0, E * C - 1)], 0.0)
-        out = torch.zeros((T, D), dtype=cdt, device=x.device).index_add(
-            0, stok, replicated(gathered * sw[:, None].to(cdt)))
+        sw = replicated_grad(replicated(top_p).reshape(S)[order])
+        picked = replicated_grad(replicated(y_flat)[slot.clamp(0, E * C - 1)])
+        gathered = torch.where(keep[:, None], picked, 0.0)
+        out = replicated_grad(torch.zeros((T, D), dtype=cdt, device=x.device).index_add(
+            0, stok, replicated(gathered * sw[:, None].to(cdt))))
     if cfg.moe_hints:
         out = shard_hint(out, lambda m: (dp_spec(m), None))
 

@@ -10,7 +10,9 @@ and journal bytes must match the reference exactly.
 import pytest
 
 from torch_parity import PORT, REF, SEED, context, costs, library, run_both
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 SCENARIOS = {}

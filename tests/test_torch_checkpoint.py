@@ -22,7 +22,9 @@ from repro_torch.distributed import archive_to_tape, plan_restore
 from repro_torch.distributed import checkpoint as port_ckpt
 from repro_torch.storage.tape import TapeLibrary as PortLibrary
 from torch_parity import TO_REF
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 

@@ -56,7 +56,9 @@ from repro_torch.models.model import (
 )
 from repro_torch.serving.serve import make_serve_step
 from repro_torch.training import init_train_state, loss_fn
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 CROSS = ["llama-3.2-vision-90b", "seamless-m4t-large-v2"]

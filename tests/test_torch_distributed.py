@@ -47,7 +47,9 @@ from repro_torch.distributed.context import active_mesh, mesh_scope, set_active_
 from repro_torch.launch import mesh as port_mesh
 from repro_torch.launch import specs
 from repro_torch.launch import train as port_train
+from torch_threads import ONE_THREAD_ENV, one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -233,6 +235,25 @@ class TestOverProductionMeshes:
                                 device_mesh)
         assert tuple(placed.to_local().shape) == (256 // (32 if mesh == "pod2x16x16" else 16), 256)
 
+    def test_replicated_grad_replicates_the_gradient_alone(self, production_meshes):
+        """``replicated_grad`` is the identity forward, the placement kept,
+        and hands its input a replicated gradient (so the dense MoE
+        dispatch's index operations run their backward on whole tensors); a
+        plain tensor comes back as it is."""
+        from torch.distributed.tensor import Replicate
+
+        from repro_torch.distributed.context import replicated_grad
+
+        plain = torch.ones(3, requires_grad=True)
+        assert replicated_grad(plain) is plain
+        mesh = production_meshes["pod16x16"]
+        x = sharding.place(torch.empty((256, 64), device="meta"), ("data", None), mesh)
+        x.requires_grad_(True)
+        y = replicated_grad(x)
+        assert y.placements == x.placements and y.shape == x.shape
+        (g,) = torch.autograd.grad(y, x, torch.ones_like(y))
+        assert g.placements == (Replicate(), Replicate()) and g.shape == x.shape
+
     def test_production_mesh_shapes(self, production_meshes):
         for name, (shape, names) in MESHES.items():
             assert tuple(production_meshes[name].shape) == shape
@@ -338,7 +359,7 @@ def test_error_feedback_matches_reference_over_ten_steps(method):
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("mesh")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD_ENV)
     proc = subprocess.run([sys.executable, str(ROOT / "tests" / "torch_mesh_worker.py"),
                            str(out)], capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]

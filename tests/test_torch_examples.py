@@ -27,7 +27,9 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import ONE_THREAD_ENV, one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,7 +51,7 @@ DEVICE_ROWS = {"fault_serving": "fail-stop", "online_serving": "dp (fixed)"}
 
 
 def run(script: Path, args: list[str], cwd: Path = ROOT) -> str:
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu", **ONE_THREAD_ENV)
     proc = subprocess.run([sys.executable, str(script), *args], capture_output=True, text=True,
                           env=env, cwd=cwd, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -93,7 +95,7 @@ def test_example_defaults_to_the_card(name, tmp_path):
         assert numbers(printed["cuda"], drop) == numbers(printed["python"], drop)
         assert len(numbers(printed["cuda"])) > 5
         return
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD_ENV)
     proc = subprocess.run([sys.executable, str(script), *EXAMPLES[name]], capture_output=True,
                           text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode != 0
@@ -124,7 +126,7 @@ def test_serve_batched_defaults_to_the_card():
     if torch.cuda.is_available():
         assert "device=cuda" in run(script, SERVE_ARGS)
         return
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD_ENV)
     proc = subprocess.run([sys.executable, str(script), *SERVE_ARGS], capture_output=True,
                           text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode != 0
@@ -204,7 +206,7 @@ def test_train_e2e_defaults_to_the_card(tmp_path):
         assert cuda.splitlines()[0] == python.splitlines()[0]
         assert cuda.splitlines()[-1].endswith("loss decreased: True")
         return
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD_ENV)
     proc = subprocess.run([sys.executable, str(script), *args], capture_output=True,
                           text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode != 0

@@ -12,7 +12,9 @@ import pytest
 import repro.serving as ref_serving
 import repro_torch.serving as port_serving
 from torch_parity import PORT, REF, context, library, report_view, run_both, serve
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 SMALL_SEED = 7

@@ -23,7 +23,9 @@ from pathlib import Path
 import pytest
 
 from torch_parity import PORT, REF, TO_REF, backend_for, report_view
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = [pytest.mark.port, pytest.mark.fleet]
 
 SEED = 20260731

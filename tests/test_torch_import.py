@@ -7,7 +7,9 @@ import sys
 from pathlib import Path
 
 import pytest
+from torch_threads import ONE_THREAD_ENV, one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -26,7 +28,7 @@ print(len(names), leaked)
 
 
 def test_every_module_imports_with_jax_blocked():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD_ENV)
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], capture_output=True, text=True,
                           env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -77,7 +79,7 @@ def test_serving_slice_imports_with_jax_blocked(module):
         f"importlib.import_module({module!r})\n"
         "print(sorted(m for m in sys.modules if m == 'repro' or m.startswith('repro.')))\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD_ENV)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -21,7 +21,9 @@ from repro_torch.core.instance import make_instance as port_make_instance
 from repro_torch.kernels.ltsp_dp import ltsp_dp as port_ltsp_dp
 from repro_torch.kernels.ltsp_dp import ops as port_ops
 from repro_torch.kernels.ltsp_dp.ref import ltsp_dp_tables_ref, tile_schedule
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 SEED = 20211217

@@ -37,7 +37,9 @@ from repro.launch import serve as ref_serve
 from repro.launch import train as ref_train
 from repro_torch.launch import serve as port_serve
 from repro_torch.launch import train as port_train
+from torch_threads import ONE_THREAD_ENV, one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -303,7 +305,7 @@ def test_module_entry_point_runs_without_jax():
             "sys.argv = ['serve', '--serve-tape-fleet', '--tape-requests', '30',\n"
             "            '--tape-backend', 'python']\n"
             "runpy.run_module('repro_torch.launch.serve', run_name='__main__')\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD_ENV)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -33,7 +33,10 @@ the memory (Seamless's through its encoder), decode the cross caches
 ``warm_cross_cache`` fills from it, the train step's batch carries the
 embeddings; they are held to the dense decoders' bounds.  The mesh path
 at world 1 (a NCCL group of one rank, every parameter, moment, batch and
-cache a ``DTensor``) is held to the plain path on the card bit for bit.
+cache a ``DTensor``) is held to the plain path on the card: the first loss
+and the greedy tokens bit for bit, the second loss within ``rtol = 1e-6``
+and the parameters after two steps within 2e-5 (DTensor sums a few
+gradients in another order).
 Run them on a card with ``pytest -m cuda tests/test_torch_lm_device.py``.
 """
 
@@ -49,7 +52,9 @@ from repro_torch.distributed.checkpoint import named_leaves
 from repro_torch.models.model import decode_step, encode, forward, init_cache, warm_cross_cache
 from repro_torch.serving.serve import make_serve_step
 from repro_torch.training import OptConfig, adamw_init, init_train_state, loss_fn, make_train_step
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = [pytest.mark.port, pytest.mark.cuda]
 
 DENSE = ["deepseek-coder-33b", "granite-8b", "qwen2.5-3b", "yi-34b"]

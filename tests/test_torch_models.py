@@ -35,7 +35,9 @@ from repro_torch.distributed.checkpoint import named_leaves
 from repro_torch.models import blocks, common, convert
 from repro_torch.models.model import decode_step, forward, init_cache, init_model
 from repro_torch.serving.serve import make_prefill, make_serve_step
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 #: the dense decoders, the MoE architectures and the recurrent ones (the

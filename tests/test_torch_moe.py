@@ -32,7 +32,9 @@ from repro_torch.distributed.checkpoint import named_leaves
 from repro_torch.models import blocks, common, convert
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.model import ParamTree
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -14,7 +14,9 @@ import repro.obs as ref_obs
 import repro_torch.core as port_core
 import repro_torch.obs as port_obs
 from torch_parity import PORT, REF, context, costs, library, qos_trace, report_view, trace
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 

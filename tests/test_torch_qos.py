@@ -17,7 +17,9 @@ import repro_torch.data as port_data
 import repro_torch.data.traces as port_traces
 import repro_torch.serving as port_serving
 from torch_parity import PORT, REF, context, costs, library, qos_trace, run_both, trace
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 SCENARIOS = {}

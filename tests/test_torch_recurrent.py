@@ -31,7 +31,9 @@ from repro_torch.distributed.checkpoint import named_leaves
 from repro_torch.models import blocks, convert
 from repro_torch.models.model import ParamTree, _stacked, decode_step, forward, init_cache, \
     init_model
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -21,7 +21,9 @@ from repro.core.verify import verify_schedule as ref_verify
 from repro_torch.core.instance import make_instance as port_make_instance
 from repro_torch.core.verify import verify_schedule as port_verify
 from torch_parity import PORT, REF, context, costs, library, run_both, trace
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 SCENARIOS = {}

@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from torch_parity import PORT, REF, context, costs, library, report_view, run_both, trace
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 SCENARIOS = {}

@@ -17,7 +17,9 @@ import torch
 import repro.core as ref_core
 import repro_torch.core as port_core
 from repro_torch.core.instance import make_instance as port_make_instance
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 SEED = 20211218

@@ -19,7 +19,9 @@ from repro_torch.data import generator as port_generator
 from repro_torch.data import paper_instances as port_paper
 from repro_torch.serving.sim import replay_schedule as port_replay
 from repro_torch.storage.tape import PendingQueue, Tape, TapeLibrary, schedule_reads
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 POLICIES = ["nodetour", "gs", "fgs", "nfgs", "lognfgs5", "logdp1", "logdp5", "simpledp", "dp"]

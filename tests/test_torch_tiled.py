@@ -25,20 +25,12 @@ from repro_torch.kernels.ltsp_dp import ltsp_dp as port_ltsp_dp
 from repro_torch.kernels.ltsp_dp import ops as port_ops
 from repro_torch.kernels.ltsp_dp import ref as port_ref
 from test_torch_kernels import CONFIGS, SEED, random_port_instance, reference_planes, to_reference
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 TILE_SIZES = [1, 2, 3, 4, "R"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_cpu_thread():
-    """The plain versions run thousands of tiny tensor operations, which
-    one thread does far faster than a pool; the setting is restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @functools.cache

@@ -74,7 +74,9 @@ from repro_torch.training import (
     lr_at,
     make_train_step,
 )
+from torch_threads import one_thread
 
+one_thread()  # six test workers with a thread per core each oversubscribe the CPU
 pytestmark = pytest.mark.port
 
 DENSE = ["deepseek-coder-33b", "granite-8b", "qwen2.5-3b", "yi-34b"]

@@ -22,6 +22,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
+from torch_threads import ONE_THREAD_ENV, one_thread  # noqa: E402
 
 ARCHS = ("granite-8b", "deepseek-v2-236b")
 WORLD = 4
@@ -117,7 +118,7 @@ def run_arch(arch: str, mesh, out: Path) -> dict:
 
 
 def child(rank: int, out: str) -> None:
-    torch.set_num_threads(1)
+    one_thread()  # four ranks with a thread per core each oversubscribe the CPU
     out = Path(out)
     dist.init_process_group("gloo", store=dist.FileStore(str(out / "store"), WORLD),
                             rank=rank, world_size=WORLD)
@@ -138,5 +139,5 @@ def child(rank: int, out: str) -> None:
 
 
 if __name__ == "__main__":
-    os.environ.setdefault("OMP_NUM_THREADS", "1")
+    os.environ.update(ONE_THREAD_ENV)
     mp.spawn(child, args=(sys.argv[1],), nprocs=WORLD)
