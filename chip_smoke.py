@@ -61,8 +61,10 @@ step, on ``meta`` tensors on the CPU) within 10% of the allocator's
 high-water mark over one step on each path; 14b its bf16 serving on both,
 the cache placed by ``cache_pspecs``, greedy tokens held equal; 14c
 ``--mesh pod|multipod`` raising the reference's ``RuntimeError`` and
-``compressed_grads`` on the trained model's gradients; 14d one dry-run
-cell on the CPU.  Every phase fails the run on any mismatch.
+``compressed_grads`` on the trained model's gradients; 14d the dry run's
+Qwen2.5-3B ``train_4k`` and ``prefill_32k`` cells on both production
+meshes, on the CPU, each device's flops held within 5% of the JAX package's
+count of the same cell.  Every phase fails the run on any mismatch.
 
 Usage, from the root of a checkout, on a machine with a CUDA card::
 
@@ -355,13 +357,24 @@ TRAIN_SEAMLESS_TIMED_FROM = 3
 #: memory at world 1 against the card's allocator on one such step (14a),
 #: served bf16 at batch 8 with the cache placed by cache_pspecs (14b), the
 #: production meshes and the gradient compressors on 14a's last gradients
-#: (14c), and one dry-run cell on the CPU (14d)
+#: (14c), and the dry run's cells on the CPU (14d)
 MESH_TRAIN = ["--arch", LM_ARCH, "--steps", "5", "--batch", "4", "--seq", "512",
               "--ckpt-every", "1000"]
 MESH_SERVE = dict(batch=8, prompt=8, new=16)
 MESH_COMPRESS_RATIO = 0.01
-MESH_DRYRUN = ["--arch", LM_ARCH, "--shape", "train_4k", "--mesh", "both"]
+MESH_DRYRUN_SHAPES = ("train_4k", "prefill_32k")
 MESH_DRYRUN_TIMEOUT = 600
+#: 14d: the JAX package's per-device flops of the same cells (``python -m
+#: repro.launch.dryrun --arch qwen2.5-3b``: XLA's cost analysis of the
+#: compiled SPMD step on 512 CPU host devices, JAX 0.9.0, the elementwise
+#: work included), and the most the port's count (products only) may exceed
+#: them: a device that repeats another's attention heads, logits or weight
+#: gradients counts up to 10 times as many
+MESH_REFERENCE_FLOPS = {("train_4k", "pod16x16"): 1.141e14,
+                        ("train_4k", "pod2x16x16"): 5.705e13,
+                        ("prefill_32k", "pod16x16"): 6.590e13,
+                        ("prefill_32k", "pod2x16x16"): 3.288e13}
+MESH_FLOPS_REL = 1.05
 
 
 def serving_exactness(dev: str) -> None:
@@ -2505,39 +2518,60 @@ def production_meshes_raise() -> None:
 
 
 def mesh_dryrun() -> None:
-    """Phase 14d: one dry-run cell in a process of its own on the CPU (its
-    fake process group of 512 ranks), Qwen2.5-3B ``train_4k`` on both
-    production meshes; prints the per-device bytes and collectives it
-    computed."""
+    """Phase 14d: the dry run of Qwen2.5-3B's ``train_4k`` and
+    ``prefill_32k`` cells on both production meshes, one process of its own
+    on the CPU for each shape (each starts a fake process group of 512
+    ranks), both started together; prints each cell's per-device bytes,
+    flops and collectives with the torch release, and fails where a cell's
+    flops exceed the reference's by more than ``MESH_FLOPS_REL``."""
     import os
+
+    import torch
 
     out = ROOT / "build" / "dryrun_14d"
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
     t0 = time.perf_counter()
+    procs = {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LM_ARCH, "--shape", shape,
+         "--mesh", "both", "--out", str(out), "--force"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT) for shape in MESH_DRYRUN_SHAPES}
     try:
-        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *MESH_DRYRUN,
-                               "--out", str(out), "--force"], capture_output=True, text=True,
-                              env=env, cwd=ROOT, timeout=MESH_DRYRUN_TIMEOUT)
+        outputs = {shape: proc.communicate(timeout=MESH_DRYRUN_TIMEOUT)
+                   for shape, proc in procs.items()}
     except subprocess.TimeoutExpired:
         raise SystemExit(f"phase 14d FAILED: the dry run took over {MESH_DRYRUN_TIMEOUT} s")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise SystemExit(f"phase 14d FAILED: exit {proc.returncode}: {proc.stdout[-2000:]} "
-                         f"{proc.stderr[-2000:]}")
-    for line in proc.stdout.splitlines():
-        if line.startswith(("PASS", "FAIL", "dry-run")):
-            log(f"phase 14d: {line}")
-    for name in ("pod16x16", "pod2x16x16"):
-        rec = json.loads((out / f"{LM_ARCH}__train_4k__{name}.json").read_text())
+    for shape, (stdout, stderr) in outputs.items():
+        if procs[shape].returncode != 0:
+            raise SystemExit(f"phase 14d FAILED: {shape}: exit {procs[shape].returncode}: "
+                             f"{stdout[-2000:]} {stderr[-2000:]}")
+        for line in stdout.splitlines():
+            if line.startswith(("PASS", "FAIL", "dry-run")):
+                log(f"phase 14d: {line}")
+    over = []
+    for (shape, name), want in MESH_REFERENCE_FLOPS.items():
+        rec = json.loads((out / f"{LM_ARCH}__{shape}__{name}.json").read_text())
         mem = rec["memory"]
-        log(f"phase 14d: {name}: per device (computed on the CPU, not measured on a card) "
-            f"arguments {mem['argument_size_in_bytes']} B, outputs "
-            f"{mem['output_size_in_bytes']} B, temporaries {mem['temp_size_in_bytes']} B "
-            f"({mem['temp_size_in_bytes'] / 2**30:.3f} GiB), {rec['bytes_accessed']} B "
-            f"accessed (unfused), {rec['flops']:.6g} FLOP of products, "
-            f"collectives {json.dumps(rec['collectives'])} B ({rec['collective_bytes']:.6g} B), "
-            f"step run in {rec['full_compile_s']} s")
-    log(f"phase 14d: dry run of {LM_ARCH} train_4k on both meshes exit 0 in {wall:.3f} s")
+        log(f"phase 14d: {shape} {name}: per device (computed on the CPU by torch "
+            f"{torch.__version__}, not measured on a card) {rec['flops']:.6g} FLOP of products "
+            f"({rec['flops'] / want:.4f} x the reference's {want:.4g}), arguments "
+            f"{mem['argument_size_in_bytes']} B, outputs {mem['output_size_in_bytes']} B "
+            f"({mem['output_size_in_bytes'] / 2**30:.3f} GiB), temporaries "
+            f"{mem['temp_size_in_bytes']} B ({mem['temp_size_in_bytes'] / 2**30:.3f} GiB), "
+            f"{rec['bytes_accessed']} B accessed (unfused), collectives "
+            f"{json.dumps(rec['collectives'])} B ({rec['collective_bytes']:.6g} B), step run in "
+            f"{rec['full_compile_s']} s")
+        if rec["flops"] > MESH_FLOPS_REL * want:
+            over.append(f"{shape} {name} {rec['flops']:.4g} > {MESH_FLOPS_REL} x {want:.4g}")
+    if over:
+        raise SystemExit(f"phase 14d FAILED: a device does more than its share: {over}")
+    log(f"phase 14d: dry run of {LM_ARCH} {' and '.join(MESH_DRYRUN_SHAPES)} on both meshes "
+        f"exit 0 in {wall:.3f} s, every cell's flops within {MESH_FLOPS_REL} x the reference's")
 
 
 def mesh_path(dev: str, phases: dict) -> None:
@@ -2574,7 +2608,7 @@ def mesh_path(dev: str, phases: dict) -> None:
     phases["14c production meshes"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     mesh_dryrun()
-    phases["14d dry-run cell"] = time.perf_counter() - t0
+    phases["14d dry-run cells"] = time.perf_counter() - t0
 
 
 def main() -> int:

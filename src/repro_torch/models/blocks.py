@@ -29,7 +29,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..distributed.context import merge_dims, replicated_apply, split_dim, unshard, write_at
+from ..distributed.context import (
+    gathered, local_attention, merge_dims, replicated_apply, rows_matmul, split_dim, unshard,
+    width_replicated, width_sharded, write_at,
+)
 from .common import (
     ModelConfig,
     apply_rope,
@@ -74,11 +77,12 @@ def init_attn(gen, cfg: ModelConfig, *, device) -> dict:
 
 def _proj(x, w, b=None):
     """``x @ w`` in x's dtype: the weight is cast on every call, as in the
-    reference."""
+    reference.  The weights are column-sharded, so on the mesh path the
+    output keeps its width on "model" (:func:`width_sharded`)."""
     y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)
-    return y
+    return width_sharded(y)
 
 
 def _cache_slot(pos: int, S: int) -> int:
@@ -133,7 +137,7 @@ def apply_attn(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
         out = torch.einsum("bhglm,bmhd->blhgd", w.to(v_cache.dtype), v_cache)
         out = out.reshape(B, 1, Hq, dh)
         new_cache = {"k": k_cache, "v": v_cache}
-    y = merge_dims(out, 2, 2) @ p["wo"].to(x.dtype)
+    y = width_sharded(merge_dims(out, 2, 2)) @ p["wo"].to(x.dtype)
     return y, new_cache
 
 
@@ -167,7 +171,7 @@ def apply_xattn(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
         k, v = cache["k"], cache["v"]
     out = causal_attention(q, k, v, scale=dh**-0.5, causal=False,
                            scores_f32=cfg.attn_scores_f32)
-    return merge_dims(out, 2, 2) @ p["wo"].to(x.dtype), cache
+    return width_sharded(merge_dims(out, 2, 2)) @ p["wo"].to(x.dtype), cache
 
 
 def init_xattn_cache(cfg: ModelConfig, batch: int, mem_len: int, *, device) -> dict:
@@ -207,11 +211,11 @@ def apply_mla(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
     kr = cfg.kv_lora_rank
     scale = (nd + rd) ** -0.5
 
-    q = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"])
-    q = split_dim(q @ p["wq_b"].to(x.dtype), -1, H, nd + rd)
+    q = rms_norm(rows_matmul(x, p["wq_a"].to(x.dtype)), p["q_norm"])
+    q = split_dim(width_sharded(q @ p["wq_b"].to(x.dtype)), -1, H, nd + rd)
     qn, qr_ = q[..., :nd], q[..., nd:]
 
-    kv_a = x @ p["wkv_a"].to(x.dtype)
+    kv_a = rows_matmul(x, p["wkv_a"].to(x.dtype))
     ckv = rms_norm(kv_a[..., :kr], p["kv_norm"])  # [B, L, kr]
     k_rope = kv_a[..., kr:].reshape(B, L, 1, rd)
 
@@ -219,11 +223,11 @@ def apply_mla(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
         cos, sin = rope_freqs(ctx.positions, rd, cfg.rope_theta)
         qr_ = apply_rope(qr_, cos, sin)
         k_rope = apply_rope(k_rope, cos, sin)
-        kn = split_dim(ckv @ p["wk_b"].to(x.dtype), -1, H, nd)
-        v = split_dim(ckv @ p["wv_b"].to(x.dtype), -1, H, vd)
+        kn = split_dim(width_sharded(ckv @ p["wk_b"].to(x.dtype)), -1, H, nd)
+        v = split_dim(width_sharded(ckv @ p["wv_b"].to(x.dtype)), -1, H, vd)
         k = torch.cat([kn, k_rope.expand(B, L, H, rd)], -1)
         out = _attend(torch.cat([qn, qr_], -1), k, v, cfg, ctx, scale)
-        return merge_dims(out, 2, 2) @ p["wo"].to(x.dtype), None
+        return width_sharded(merge_dims(out, 2, 2)) @ p["wo"].to(x.dtype), None
 
     # ---- absorbed decode over the compressed cache -------------------------
     pos = ctx.pos
@@ -310,7 +314,8 @@ def _mamba_ssm_inputs(p, u, cfg: ModelConfig):
     reference."""
     dS = cfg.mamba_d_state
     dt_rank = p["dt_proj"].shape[0]
-    proj = u @ p["x_proj"].to(u.dtype)
+    # a partial sum over "model", reduced before the column-sharded dt_proj
+    proj = width_replicated(u @ p["x_proj"].to(u.dtype))
     dt = wide(_softplus(proj[..., :dt_rank] @ p["dt_proj"].to(u.dtype)
                    + p["dt_bias"].to(u.dtype)))  # [B, L, dI]
     Bc = wide(proj[..., dt_rank : dt_rank + dS])  # [B, L, dS]
@@ -368,12 +373,14 @@ def apply_mamba(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
     writes both back in place."""
     B, L, D = x.shape
     dI = cfg.mamba_expand * D
-    uz = x @ p["in_proj"].to(x.dtype)
-    u, z = uz[..., :dI], uz[..., dI:]
+    # the halves of a column-sharded product: gathered (its gradient goes
+    # back sharded), then each sharded over "model" again
+    uz = gathered(x @ p["in_proj"].to(x.dtype), -1)
+    u, z = width_sharded(uz[..., :dI]), width_sharded(uz[..., dI:])
 
     if cache is None:
         u, _ = _conv1d_causal(u, p["conv_w"], p["conv_b"])
-        u = F.silu(u)
+        u = width_sharded(F.silu(u))
         dA, dBu, Cc = _mamba_ssm_inputs(p, u, cfg)
         Ck = min(cfg.mamba_chunk, L)
         assert L % Ck == 0, (L, Ck)
@@ -414,6 +421,21 @@ def init_mlstm(gen, cfg: ModelConfig, *, device) -> dict:
     }
 
 
+def _mlstm_parallel(q, Fc, amax, k, v, a, row_offset: int):
+    """The parallel mLSTM over query rows ``row_offset ..`` of ``q``, ``Fc``
+    and ``amax`` [B, Lq, H(, dh)] against every key of ``k``, ``v`` and
+    ``a`` [B, L, H(, dh)]."""
+    # Dmat[t, s] = exp(F[t]-F[s]+i[s]-m[t]), m[t] = F[t] + amax[t]
+    dmat = torch.exp(a[:, None] - amax[:, :, None])  # [B, t, s, H]
+    t_idx = torch.arange(q.shape[1], device=q.device) + row_offset
+    s_idx = torch.arange(k.shape[1], device=q.device)
+    causal = (t_idx[:, None] >= s_idx[None, :])[None, :, :, None]
+    dmat = torch.where(causal, dmat, 0.0)
+    scores = wide(torch.einsum("blhd,bmhd->blmh", q, k)) * dmat
+    norm = torch.maximum(scores.sum(dim=2).abs(), torch.exp(-(Fc + amax)))  # [B, L, H]
+    return torch.einsum("blmh,bmhd->blhd", (scores / norm[:, :, None]).to(v.dtype), v)
+
+
 def apply_mlstm(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
     """Matrix-memory LSTM [arXiv:2405.04517]: the parallel stabilised form
     over the full sequence, the O(1) recurrent form with the ``(m, C, n)``
@@ -424,10 +446,10 @@ def apply_mlstm(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
     the masked entries overflow to ``inf`` (the output does not see them)."""
     B, L, D = x.shape
     H, dh = cfg.num_heads, cfg.head_dim
-    q = unshard(split_dim(x @ p["wq"].to(x.dtype), -1, H, dh), 2)
-    k = unshard(split_dim(x @ p["wk"].to(x.dtype), -1, H, dh), 2) * dh**-0.5
-    v = unshard(split_dim(x @ p["wv"].to(x.dtype), -1, H, dh), 2)
-    gates = wide(x @ p["w_if"].to(x.dtype) + p["b_if"].to(x.dtype))
+    q = split_dim(_proj(x, p["wq"]), -1, H, dh)
+    k = split_dim(_proj(x, p["wk"]), -1, H, dh) * dh**-0.5
+    v = split_dim(_proj(x, p["wv"]), -1, H, dh)
+    gates = wide(rows_matmul(x, p["w_if"].to(x.dtype)) + p["b_if"].to(x.dtype))
     i_raw, f_raw = gates[..., :H], gates[..., H:]  # [B, L, H]
     log_f = -_softplus(-f_raw)  # log sigmoid(f)
 
@@ -435,15 +457,9 @@ def apply_mlstm(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
         Fc = replicated_apply(lambda t: torch.cumsum(t, dim=1), log_f)  # [B, L, H]
         a = i_raw - Fc  # i[s] - F[s]
         amax = replicated_apply(lambda t: torch.cummax(t, dim=1).values, a)
-        # Dmat[t, s] = exp(F[t]-F[s]+i[s]-m[t]), m[t] = F[t] + amax[t]
-        dmat = torch.exp(a[:, None] - amax[:, :, None])  # [B, t, s, H]
-        t_idx = torch.arange(L, device=x.device)
-        causal = (t_idx[:, None] >= t_idx[None, :])[None, :, :, None]
-        dmat = torch.where(causal, dmat, 0.0)
-        scores = wide(torch.einsum("blhd,bmhd->blmh", q, k)) * dmat
-        norm = torch.maximum(scores.sum(dim=2).abs(), torch.exp(-(Fc + amax)))  # [B, L, H]
-        h = torch.einsum("blmh,bmhd->blhd", (scores / norm[:, :, None]).to(v.dtype), v)
+        h = local_attention(_mlstm_parallel, (q, Fc, amax), (k, v, a))
     else:
+        q, k, v = unshard(q, 2), unshard(k, 2), unshard(v, 2)
         m0, C0, n0 = cache["m"], cache["C"], cache["n"]
         lf, ii = log_f[:, 0], i_raw[:, 0]  # [B, H]
         m1 = torch.maximum(lf + m0, ii)
@@ -458,7 +474,7 @@ def apply_mlstm(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
         den = torch.maximum(torch.einsum("bhd,bhd->bh", qh, n0).abs(), torch.exp(-m1))
         h = (num / den[..., None]).to(x.dtype)[:, None]
     h = rms_norm(merge_dims(unshard(h, 2), 2, 2), p["ln_out"])
-    return h @ p["wo"].to(x.dtype), cache
+    return width_sharded(h) @ p["wo"].to(x.dtype), cache
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
@@ -509,7 +525,7 @@ def apply_slstm(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
     at -1e30), or one step from the cache's state, written back in place."""
     B, L, D = x.shape
     H, dh = cfg.num_heads, cfg.head_dim
-    pre = wide(x @ p["w_in"].to(x.dtype) + p["b_in"].to(x.dtype))
+    pre = wide(_proj(x, p["w_in"], p["b_in"]))
 
     if cache is None:
         def zeros():
@@ -521,6 +537,7 @@ def apply_slstm(p, x, cfg: ModelConfig, ctx: Ctx, cache=None):
             carry, h1 = _slstm_step(p, carry, pre[:, t], cfg)
             hs.append(h1)
         h = merge_dims(torch.stack(hs, dim=1), 2, 2).to(x.dtype)
+        h = width_sharded(h)
     else:
         carry, h1 = _slstm_step(p, (cache["c"], cache["n"], cache["h"], cache["m"]),
                                 pre[:, 0], cfg)

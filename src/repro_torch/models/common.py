@@ -11,22 +11,25 @@ unbatched ``aten.mm`` outputs) recomputes them as the reference's
 ``dots_with_no_batch_dims_saveable`` does.
 
 On the mesh path the tensors are ``DTensor`` s, and the same code runs: the
-head splits and merges go through ``split_dim``/``merge_dims``, the
-attention operands through ``unshard``, and the gather cross-entropy
-replicates its logits (:mod:`repro_torch.distributed.context`), each the
-identity on a plain tensor.
+head splits and merges go through ``split_dim``/``merge_dims``, attention
+through ``local_attention`` (each rank on its own batch rows and heads), and
+the gather cross-entropy gathers the vocabulary only and picks each label on
+the rank's own batch rows (``gathered``, ``take_last``)
+(:mod:`repro_torch.distributed.context`), each the identity's counterpart on
+a plain tensor.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from ..distributed.context import (
-    dp_spec, merge_dims, replicated, replicated_apply, replicated_grad, shard_hint, split_dim,
-    unshard,
+    dp_spec, gathered, local_attention, merge_dims, replicated, replicated_apply,
+    replicated_grad, rows_matmul, shard_hint, split_dim, take_last, width_sharded,
 )
 from ..distributed.sharding import MODEL
 
@@ -195,6 +198,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def _attention(q, k, v, row_offset: int, *, scale: float, causal: bool, q_offset: int | None,
+               scores_f32: bool):
+    """:func:`causal_attention`'s arithmetic on whole (or local) tensors; the
+    query rows start at ``q_offset + row_offset``."""
+    Lq, Lk = q.shape[1], k.shape[1]
+    Hkv = k.shape[2]
+    qg = split_dim(q, 2, Hkv, q.shape[2] // Hkv)
+    sdt = torch.float32 if scores_f32 else q.dtype
+    logits = torch.einsum("blhgd,bmhd->bhglm", qg.to(sdt), k.to(sdt))
+    logits = logits * torch.tensor(scale, dtype=sdt)  # the scale rounded to sdt first
+    if causal:
+        qpos = torch.arange(Lq, device=q.device)[:, None] + ((q_offset or 0) + row_offset)
+        mask = qpos >= torch.arange(Lk, device=q.device)[None, :]
+        logits = logits.masked_fill(~mask, -30000.0)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhglm,bmhe->blhge", w.to(v.dtype), v)
+    return merge_dims(out, 2, 2)
+
+
 def causal_attention(q, k, v, *, scale: float, causal: bool = True,
                      q_offset: int | None = None, scores_f32: bool = True):
     """Grouped-query attention.
@@ -204,23 +226,13 @@ def causal_attention(q, k, v, *, scale: float, causal: bool = True,
     aligned).  Scores are float32 when ``scores_f32`` (the operands are
     widened first, which is exact, so the products accumulate in float32 as
     the reference's ``preferred_element_type`` asks), else the compute dtype.
-    Masked scores are -30000, not -inf, as in the reference.
+    Masked scores are -30000, not -inf, as in the reference.  On the mesh
+    path each rank attends with its own batch rows and query heads (or
+    query rows), :func:`~repro_torch.distributed.context.local_attention`.
     """
-    B, Lq, Hq, D = q.shape
-    Lk, Hkv = k.shape[1], k.shape[2]
-    G = Hq // Hkv
-    q, k, v = unshard(q, 2), unshard(k, 2), unshard(v, 2)
-    qg = split_dim(q, 2, Hkv, G)
-    sdt = torch.float32 if scores_f32 else q.dtype
-    logits = torch.einsum("blhgd,bmhd->bhglm", qg.to(sdt), k.to(sdt))
-    logits = logits * torch.tensor(scale, dtype=sdt)  # the scale rounded to sdt first
-    if causal:
-        qpos = torch.arange(Lq, device=q.device)[:, None] + (q_offset or 0)
-        mask = qpos >= torch.arange(Lk, device=q.device)[None, :]
-        logits = logits.masked_fill(~mask, -30000.0)
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhglm,bmhe->blhge", w.to(v.dtype), v)
-    return merge_dims(unshard(out, 2, 3), 2, 2)
+    return local_attention(
+        functools.partial(_attention, scale=scale, causal=causal, q_offset=q_offset,
+                          scores_f32=scores_f32), (q,), (k, v))
 
 
 def chunked_causal_attention(q, k, v, *, scale: float, chunk: int,
@@ -244,7 +256,9 @@ def chunked_causal_attention(q, k, v, *, scale: float, chunk: int,
 
 
 def swiglu(x, w_gate, w_in, w_out):
-    h = F.silu(x @ w_gate) * (x @ w_in)
+    """The gated FFN; on the mesh path the hidden width stays on "model"
+    (:func:`~repro_torch.distributed.context.width_sharded`)."""
+    h = F.silu(width_sharded(x @ w_gate)) * width_sharded(x @ w_in)
     return h @ w_out
 
 
@@ -263,9 +277,9 @@ def softmax_cross_entropy(logits, labels, z_loss: float = 1e-4,
         onehot_sel = torch.where(iota == labels[..., None], logits.float(), 0.0)
         ll = onehot_sel.sum(dim=-1)
     else:
-        logits = replicated(logits).float()  # the DTensor gather of a sharded vocab fails
+        logits = gathered(logits, -1).float()  # the vocabulary gathered, the batch not
         lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        ll = take_last(logits, labels)
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * lse**2
@@ -338,7 +352,7 @@ def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig):
     top_e [T, K]): the K largest probabilities, renormalised, and their
     experts.  ``jax.lax.top_k`` puts equal values in index order, which a
     stable descending sort keeps (``torch.topk`` does not promise it)."""
-    probs = torch.softmax((xt.float() @ router).float(), dim=-1)
+    probs = torch.softmax(rows_matmul(xt.float(), router).float(), dim=-1)
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_e = top_p[:, : cfg.top_k], top_e[:, : cfg.top_k]
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)  # renormalise

@@ -41,7 +41,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from ..distributed.context import dp_spec, lookup, shard_hint
+from ..distributed.context import dp_spec, lookup, shard_hint, width_replicated
 from ..distributed.sharding import MODEL
 from .blocks import (
     MIXER_APPLY,
@@ -206,14 +206,15 @@ def _add_aux(total, aux):
 def _apply_layer(lp, x, cfg: ModelConfig, kind: str, ctx: Ctx, cache):
     """-> (x, new cache or None, the MoE aux loss or None)."""
     rk = _resolved_kind(cfg, kind)
+    x = width_replicated(x)
     y, new_cache = MIXER_APPLY[rk](lp["mixer"], rms_norm(x, lp["ln1"]), cfg, ctx,
                                    cache=cache.get("mix") if cache else None)
-    x = x + y
+    x = width_replicated(x + y)
     new_cache = {"mix": new_cache} if new_cache is not None else {}
     if "xmixer" in lp:
         y, xc = apply_xattn(lp["xmixer"], rms_norm(x, lp["lnx"]), cfg, ctx,
                             cache=cache.get("cross") if cache else None)
-        x = x + y
+        x = width_replicated(x + y)
         if xc is not None:
             new_cache["cross"] = xc
     aux = None
@@ -307,11 +308,15 @@ def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor) -> torch.Tensor:
     x = enc_embeds.to(cfg.cdtype)
     for i in range(cfg.enc_layers):
         x = body(x, _tree_map(lambda slices: slices[i], layers))
-    return rms_norm(x, params["enc_norm"])
+    return rms_norm(width_replicated(x), params["enc_norm"])
 
 
 def _head(params, cfg: ModelConfig, x):
-    x = rms_norm(x, params["final_norm"])
+    """The logits: on the mesh path each rank's product is its batch rows
+    (:func:`~repro_torch.distributed.context.width_replicated`) against its
+    shard of the vocabulary (the head's rule), not a whole-vocabulary partial
+    sum over a sharded model width."""
+    x = rms_norm(width_replicated(x), params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head.to(x.dtype)
 

@@ -17,7 +17,9 @@ the parameters are held within 2e-5 (at learning rate 3e-4 a flipped
 gradient sign moves an element by about 3e-4; measured at most 1.1e-5),
 ``m`` and ``v`` within 1e-5 of each leaf's largest element, the loss, aux
 loss and gradient norm within ``rtol = 1e-5``; the greedy tokens and the
-hot-tier checkpoint files are equal.
+hot-tier checkpoint files are equal.  Each branch of ``local_attention``
+(query heads or rows per rank) runs there too, in float64, against the
+plain call.
 """
 
 import json
@@ -400,6 +402,17 @@ def test_four_rank_checkpoint_is_byte_identical(arch, four_ranks):
     assert sorted(p.name for p in mesh.iterdir()) == names and len(names) > 10
     for name in names:
         assert (mesh / name).read_bytes() == (plain / name).read_bytes(), name
+
+
+@pytest.mark.parametrize("case", ["grouped", "one_kv_head", "kv_head_per_two_ranks",
+                                  "kv_per_query_head", "rows", "rows_offset", "replicated",
+                                  "mlstm_heads", "mlstm_rows"])
+def test_four_rank_attention_on_local_shards_equals_the_plain_call(case, four_ranks):
+    """Attention and the parallel mLSTM on each rank's share (its batch rows
+    and query heads, or query rows) in float64: the output and every
+    operand's gradient equal the plain call's but for the order of the
+    gradient's sums over ranks (relative to each tensor's largest element or 1)."""
+    assert four_ranks[1]["attention"][case] <= 1e-12
 
 
 # ---------------------------------------------------------------------------

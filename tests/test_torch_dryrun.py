@@ -12,10 +12,15 @@ reference's JSON keys; and the command line on one full-width cell.  The
 memory and traffic counts, which the reference reads off XLA, are held to
 counts worked out by hand on one linear layer, to the same step on real CPU
 tensors, to the remat policy they must follow, and to the backward pass they
-must see; a tracker that raises fails its cell.
+must see; a tracker that raises fails its cell.  Each device's share of the
+work: a reduced dense arch's per-device flops times the ranks against one
+device's step, and the reduced Qwen2.5-3B's against the reference's own
+ratio from XLA's cost analysis of its SPMD step (in a process of its own,
+JAX on 8 host devices); and the largest storage the cross-entropy creates.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -330,3 +335,112 @@ def test_a_tracker_error_fails_the_cell(four_rank_group, tmp_path, monkeypatch):
     assert not rec["ok"] and "RuntimeError: tracker broke" in rec["error"]
     assert "memory" not in rec and "bytes_accessed" not in rec
     assert json.loads((tmp_path / "qwen2.5-3b__decode_32k__pod16x16.json").read_text()) == rec
+
+
+# ---------------------------------------------------------------------------
+# each device's share of the work
+# ---------------------------------------------------------------------------
+SHARE = {"train": InputShape("train_share", 256, 8, "train"),
+         "prefill": InputShape("prefill_share", 256, 8, "prefill")}
+SHARE_MESHES = {"2x4": ((2, 4), ("data", "model")),
+                "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
+#: the most a dense arch's per-device flops times the ranks may exceed one
+#: device's: attention, the logits head and the cross-entropy run on each
+#: rank's share of the batch, heads and vocabulary
+EVEN_SHARE = 1.02
+
+
+@functools.lru_cache(maxsize=None)
+def one_device_flops(arch: str, kind: str) -> float:
+    return dryrun.analyse(reduced(ARCHS[arch]), SHARE[kind], None)["flops"]
+
+
+def share_ratio(arch: str, kind: str, mesh_name: str) -> float:
+    """Per-device flops times the 8 ranks of ``mesh_name`` over one device's
+    flops, of the reduced ``arch``'s step at 8 x 256."""
+    shape, names = SHARE_MESHES[mesh_name]
+    got = dryrun.analyse(reduced(ARCHS[arch]), SHARE[kind], mesh_of(shape, names))
+    return got["flops"] * 8 / one_device_flops(arch, kind)
+
+
+@pytest.mark.parametrize("mesh_name", list(SHARE_MESHES))
+@pytest.mark.parametrize("kind", list(SHARE))
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-8b", "seamless-m4t-large-v2",
+                                  "llama-3.2-vision-90b"])
+def test_each_device_computes_its_share(arch, kind, mesh_name, fake_group):
+    """A dense arch's step over 8 ranks does the one-device step's products
+    once in all, to within ``EVEN_SHARE``: no rank repeats another's
+    attention heads, logits or weight gradients."""
+    assert share_ratio(arch, kind, mesh_name) <= EVEN_SHARE
+
+
+#: the JAX package's per-device flops (XLA's cost analysis of the compiled
+#: SPMD step) times the ranks over its one-device flops, on 8 host devices
+REFERENCE_SHARE_CODE = """
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+jax.devices()  # the backend comes up with 8 devices before repro's dryrun sets 512
+import numpy as np
+from repro.configs import ARCHS, reduced
+from repro.configs.base import InputShape
+from repro.distributed.context import set_active_mesh
+from repro.launch import dryrun
+
+cfg = reduced(ARCHS[sys.argv[1]])
+shape = InputShape("train_share", 256, 8, "train")
+flops = {}
+for name, dims, axes in (("1", (1, 1), ("data", "model")), ("2x4", (2, 4), ("data", "model")),
+                         ("2x2x2", (2, 2, 2), ("pod", "data", "model"))):
+    n = int(np.prod(dims))
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:n]).reshape(dims), axes)
+    set_active_mesh(mesh)
+    try:
+        with mesh:
+            flops[name] = dryrun._analyse(cfg, shape, mesh)["cost"]["flops"] * n
+    finally:
+        set_active_mesh(None)
+print(json.dumps({k: v / flops["1"] for k, v in flops.items() if k != "1"}))
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_shares():
+    """The reference's share ratios of the reduced Qwen2.5-3B's train step
+    on (2, 4) and (2, 2, 2), computed in a process of its own (JAX must
+    start with 8 host devices)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu", **ONE_THREAD_ENV)
+    proc = subprocess.run([sys.executable, "-c", REFERENCE_SHARE_CODE, "qwen2.5-3b"],
+                          capture_output=True, text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("mesh_name", list(SHARE_MESHES))
+def test_share_is_no_worse_than_the_reference(mesh_name, reference_shares, fake_group):
+    """Qwen2.5-3B reduced, a train step at 8 x 256: the port repeats no
+    more of the one-device step's products than GSPMD's layout of the
+    reference does (1.0715 on (2, 4) and 1.0296 on (2, 2, 2) with JAX 0.9;
+    its count includes elementwise work, the port's products only)."""
+    want = reference_shares[mesh_name]
+    assert 1.0 <= want < 1.2
+    assert share_ratio("qwen2.5-3b", "train", mesh_name) <= want
+
+
+def test_the_loss_creates_no_storage_larger_than_the_local_logits(fake_group):
+    """The gather cross-entropy gathers the vocabulary only: on (2, 4) the
+    largest storage the train step creates on a device holds at most the
+    local batch's float32 logits (replicating them would hold all 8
+    sequences')."""
+    from repro_torch.distributed.context import mesh_scope
+
+    cfg = reduced(ARCHS["qwen2.5-3b"])
+    shape, names = SHARE_MESHES["2x4"]
+    mesh = mesh_of(shape, names)
+    fn, args = dryrun._step_and_args(cfg, SHARE["train"], mesh)
+    cost = dryrun.LocalCost(dryrun._local_leaves(list(args)))
+    with cost, mesh_scope(mesh), torch.enable_grad():
+        fn(*args)
+    local_batch = SHARE["train"].global_batch // shape[0]
+    largest = max(size for size, _, _ in cost._made)
+    assert largest <= local_batch * SHARE["train"].seq_len * cfg.vocab_size * 4

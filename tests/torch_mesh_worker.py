@@ -4,8 +4,9 @@
 gloo process group through a ``FileStore`` under ``OUT`` (no TCP port), lay
 a ``(data 2, model 2)`` mesh over them and, for the reduced granite-8b and
 DeepSeek-V2 in float32, run on the mesh and on one device from the same
-parameters: two train steps, then greedy decoding.  Rank 0 writes what the
-test compares to ``OUT/result.json``; the hot-tier checkpoint of the trained
+parameters: two train steps, then greedy decoding; and each branch of
+``local_attention`` in float64 against the plain call.  Rank 0 writes what
+the test compares to ``OUT/result.json``; the hot-tier checkpoint of the trained
 sharded trees goes to ``OUT/<arch>/mesh`` and the same values written as
 plain tensors to ``OUT/<arch>/plain``.  Each child runs one thread.
 """
@@ -117,6 +118,79 @@ def run_arch(arch: str, mesh, out: Path) -> dict:
     return result
 
 
+#: local_attention's branches: (mesh (data, model), Hq, Hk, Lq, Lk, causal,
+#: q_offset); batch 4.  Heads sharded with the key heads sliced (the query
+#: heads per rank a multiple of Hq / Hk, or dividing it: one key head for
+#: several ranks, as Qwen2.5-3B's 2 over 16) or gathered one per query head;
+#: the query rows sharded where "model" does not divide Hq (the causal mask
+#: at each rank's row offset); replicated where it divides neither
+ATTENTION_CASES = {
+    "grouped": ((2, 2), 4, 2, 8, 8, True, None),
+    "one_kv_head": ((2, 2), 4, 1, 8, 8, True, None),
+    "kv_head_per_two_ranks": ((1, 4), 4, 2, 8, 8, True, None),
+    "kv_per_query_head": ((2, 2), 6, 3, 8, 8, True, None),
+    "rows": ((2, 2), 3, 1, 8, 8, True, None),
+    "rows_offset": ((2, 2), 3, 1, 4, 8, True, 4),
+    "replicated": ((2, 2), 3, 1, 7, 5, False, None),
+}
+MLSTM_CASES = {"mlstm_heads": 2, "mlstm_rows": 3}
+
+
+def attention_errors() -> dict:
+    """Per case, the largest difference between the mesh path and the plain
+    call, over the output and every operand's gradient, relative to that
+    tensor's largest element or 1 (the mLSTM's ``amax`` gradient cancels to
+    rounding), in float64 (scores too).  The operands arrive in other layouts than the ones
+    ``local_attention`` wants (batch replicated, the last dimension or the
+    sequence sharded), so the redistributions and their gradients run."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed.context import local_attention, mesh_scope
+    from repro_torch.models.blocks import _mlstm_parallel
+    from repro_torch.models.common import causal_attention
+
+    meshes = {shape: init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+              for shape in ((2, 2), (1, 4))}
+    gen = torch.Generator().manual_seed(2)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64)
+
+    def compare(mesh, fn, operands, layouts):
+        plain = [t.clone().requires_grad_(True) for t in operands]
+        out = fn(*plain)
+        weight = draw(*out.shape)
+        want = [out, *torch.autograd.grad((out * weight).sum(), plain)]
+        with mesh_scope(mesh):
+            placed = [distribute_tensor(t, mesh, lay).requires_grad_(True)
+                      for t, lay in zip(operands, layouts)]
+            out = fn(*placed)
+            got = [out, *torch.autograd.grad((out * weight).sum(), placed)]
+        return max(float((g.full_tensor() - w).abs().max() / max(float(w.abs().max()), 1.0))
+                   for g, w in zip(got, want))
+
+    errors = {}
+    for name, (shape, hq, hk, lq, lk, causal, q_offset) in ATTENTION_CASES.items():
+        def attend(q, k, v):
+            return causal_attention(q, k, v, scale=0.25, causal=causal, q_offset=q_offset,
+                                    scores_f32=False)
+
+        operands = [draw(4, lq, hq, 8), draw(4, lk, hk, 8), draw(4, lk, hk, 8)]
+        layouts = [[Replicate(), Shard(3)], [Replicate(), Shard(1)], [Shard(0), Shard(3)]]
+        errors[name] = compare(meshes[shape], attend, operands, layouts)
+    for name, h in MLSTM_CASES.items():
+        def mlstm(q, fc, amax, k, v, a):
+            return local_attention(_mlstm_parallel, (q, fc, amax), (k, v, a))
+
+        operands = [draw(4, 8, h, 8), draw(4, 8, h), draw(4, 8, h), draw(4, 8, h, 8),
+                    draw(4, 8, h, 8), draw(4, 8, h)]
+        layouts = [[Replicate(), Shard(3)], [Shard(0), Replicate()], [Replicate(), Shard(1)],
+                   [Replicate(), Shard(1)], [Shard(0), Shard(3)], [Replicate(), Replicate()]]
+        errors[name] = compare(meshes[2, 2], mlstm, operands, layouts)
+    return errors
+
+
 def child(rank: int, out: str) -> None:
     one_thread()  # four ranks with a thread per core each oversubscribe the CPU
     out = Path(out)
@@ -132,6 +206,7 @@ def child(rank: int, out: str) -> None:
         result = {"auto_mesh": dict(zip(auto.mesh_dim_names, auto.shape))}
         for arch in ARCHS:
             result[arch] = run_arch(arch, mesh, out)
+        result["attention"] = attention_errors()
         if rank == 0:
             (out / "result.json").write_text(json.dumps(result))
     finally:
