@@ -9,7 +9,11 @@ port's main path at the paper's IN2P3 scale: the exact DP solve of every
 ``PAPER_PROFILE`` tape whose padded table fits the card, through
 ``solve_batch(..., ExecutionContext(backend="cuda", numeric_policy="f64"))``,
 to a ``TapeLibrary`` read plan.  Phase 1c also times the dependent-load
-latency behind the traceback's bound (``csrc/pointer_chase.cu``).  Phases 6
+latency behind the traceback's bound (``csrc/pointer_chase.cu``).  Phase 1d
+runs the card-only tests under this machine's torch: the ``cuda`` cases of
+every ``tests/test_torch_*.py`` that marks one, and the four-rank tests of
+``tests/test_torch_four_ranks.py``, in two child processes started together;
+every case they select must pass.  Phases 6
 and 7 serve request traces on the card (the reference's scenarios against
 ``python``, then an IN2P3-scale trace, timed); phase 8 serves the fleet
 federation: 8a the reference's fleet under three placements with a shard
@@ -79,6 +83,9 @@ kernels with their launches, errors and times.
 from __future__ import annotations
 
 import json
+import os
+import re
+import signal
 import subprocess
 import sys
 import time
@@ -204,6 +211,175 @@ def dependent_load_ns(dev: str, R: int, S: int) -> float:
     del nxt
     torch.cuda.empty_cache()
     return sorted(times)[1]
+
+
+#: phase 1d, the card-only tests: a port test file takes part when its
+#: source marks a case ``cuda`` (its ``cuda`` cases run), and the four-rank
+#: file runs whole; pytest's ``-m`` selects by marker, not by file, so each
+#: set runs in a child process of its own, both started together
+CUDA_MARK = re.compile(r"\bpytest\.mark\.cuda\b")
+FOUR_RANK_TESTS = "tests/test_torch_four_ranks.py"
+PYTEST = (sys.executable, "-m", "pytest", "-p", "no:cacheprovider")
+CARD_COLLECT_TIMEOUT = 180
+CARD_TESTS_TIMEOUT = 600
+
+
+def card_test_files() -> list[str]:
+    """The port's test files whose source marks a case ``cuda``."""
+    return sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "tests").glob("test_torch_*.py")
+                  if CUDA_MARK.search(p.read_text()))
+
+
+def card_suites() -> dict[str, tuple[list[str], list[str]]]:
+    """Phase 1d's two sets of tests: ``{name: (pytest's selection arguments,
+    the files selected)}``."""
+    cuda_files = card_test_files()
+    return {"cuda": (["-m", "cuda", *cuda_files], cuda_files),
+            "four_ranks": ([FOUR_RANK_TESTS], [FOUR_RANK_TESTS])}
+
+
+def card_tests_env() -> dict[str, str]:
+    """A child's environment: the port and the tests' helpers on the path,
+    torch on one thread as in the CPU suite."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    from torch_threads import ONE_THREAD_ENV
+
+    return dict(os.environ, PYTHONPATH=os.pathsep.join([str(SRC), str(ROOT / "tests")]),
+                **ONE_THREAD_ENV)
+
+
+def run_together(cmds: dict[str, list[str]], env: dict, timeout: float,
+                 logs: Path) -> dict[str, tuple[int | None, float]]:
+    """Run each command from the root of the checkout, all started together,
+    each in a process group of its own with its output in ``logs/<name>.log``:
+    ``{name: (exit code, or None when it ran past ``timeout``, seconds)}``.
+    Every group is killed before this returns, whatever its child left running."""
+    logs.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name, cmd in cmds.items():
+        with open(logs / f"{name}.log", "w") as out:
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                           stderr=subprocess.STDOUT, start_new_session=True)
+    done: dict[str, tuple[int | None, float]] = {}
+    try:
+        while len(done) < len(procs) and time.perf_counter() - t0 < timeout:
+            for name, proc in procs.items():
+                if name not in done and proc.poll() is not None:
+                    done[name] = (proc.returncode, time.perf_counter() - t0)
+            time.sleep(0.2)
+    finally:
+        for proc in procs.values():
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    return {name: done.get(name, (None, time.perf_counter() - t0)) for name in procs}
+
+
+def collect_card_suites(logs: Path, pytest: tuple = PYTEST) -> dict[str, dict[str, int]]:
+    """``--collect-only`` of phase 1d's two sets, both at once: ``{name: {file:
+    cases selected}}``.  Fails the run when a collection fails."""
+    suites = card_suites()
+    cmds = {name: [*pytest, "--collect-only", "-q", *args] for name, (args, _) in suites.items()}
+    counts = {}
+    for name, (rc, _) in run_together(cmds, card_tests_env(), CARD_COLLECT_TIMEOUT, logs).items():
+        out = (logs / f"{name}.log").read_text()
+        if rc != 0:
+            raise SystemExit(f"phase 1d FAILED: collecting the {name} tests exited {rc}:\n"
+                             f"{out[-4000:]}")
+        counts[name] = dict.fromkeys(suites[name][1], 0)
+        for line in out.splitlines():
+            path = line.split("::", 1)[0]
+            if "::" in line and path in counts[name]:
+                counts[name][path] += 1
+    return counts
+
+
+def card_suite_verdict(junit_xml: Path, selected_files: list[str], collected: dict[str, int],
+                       returncode: int | None) -> dict[str, tuple[int, int]]:
+    """Phase 1d's verdict on one child: ``{file: (cases collected, passed)}``.
+
+    Fails the run (``SystemExit("phase 1d FAILED: ...")``) when the child
+    exited non-zero or ran past its time limit (``returncode`` None), when
+    its junit report holds a failure, an error or a skip (a ``cuda`` case
+    that skips on the card fails here), a case of no selected file, a
+    selected file that selects no case or passes none, or fewer passed
+    cases in a file than ``--collect-only`` selected there (``collected``).
+    """
+    import xml.etree.ElementTree as ET
+
+    def fail(why: str):
+        raise SystemExit(f"phase 1d FAILED: {why}")
+
+    if returncode is None:
+        fail(f"{junit_xml.name}: the tests ran past their time limit")
+    if returncode != 0:
+        fail(f"{junit_xml.name}: pytest exited {returncode}")
+    if not junit_xml.is_file():
+        fail(f"{junit_xml.name}: no junit report")
+    tree = ET.parse(junit_xml)
+    module = {f.removesuffix(".py").replace("/", "."): f for f in selected_files}
+    passed = dict.fromkeys(selected_files, 0)
+    for case in tree.iter("testcase"):
+        cls = case.get("classname", "")
+        label = f"{cls}::{case.get('name')}"
+        outcome = next((c.tag for c in case if c.tag in ("failure", "error", "skipped")), None)
+        if outcome is not None:
+            fail(f"{label}: {outcome}")
+        owner = next((f for m, f in module.items() if cls == m or cls.startswith(m + ".")), None)
+        if owner is None:
+            fail(f"{label}: a case of no selected file")
+        passed[owner] += 1
+    for suite in tree.iter("testsuite"):
+        counts = {k: int(suite.get(k, 0)) for k in ("failures", "errors", "skipped")}
+        if any(counts.values()):
+            fail(f"{junit_xml.name}: {counts}")
+    for f in selected_files:
+        if not collected.get(f):
+            fail(f"{f} selects no case")
+        if passed[f] == 0:
+            fail(f"{f}: no case passed")
+        if passed[f] < collected[f]:
+            fail(f"{f}: {passed[f]} passed of {collected[f]} collected")
+    return {f: (collected[f], passed[f]) for f in selected_files}
+
+
+def card_only_tests(card: str) -> float:
+    """Phase 1d: collect, then run, the card-only tests in two child
+    processes started together, and hold each to :func:`card_suite_verdict`.
+    The children load the kernel libraries that phase 1 built into
+    ``build/kernels/``.  Returns the phase's wall seconds."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"phase 1d: this process holds {torch.cuda.memory_reserved()} bytes of card memory "
+        f"({torch.cuda.memory_allocated()} allocated)")
+    work = ROOT / "build" / "chip_smoke_card_tests"
+    shutil.rmtree(work, ignore_errors=True)
+    collected = collect_card_suites(work / "collect")
+    suites = card_suites()
+    cmds = {name: [*PYTEST, "-q", f"--junitxml={work / f'{name}.xml'}", *args]
+            for name, (args, _) in suites.items()}
+    ran = run_together(cmds, card_tests_env(), CARD_TESTS_TIMEOUT, work)
+    for name, (rc, secs) in ran.items():
+        if rc != 0:
+            log((work / f"{name}.log").read_text()[-6000:])
+        verdict = card_suite_verdict(work / f"{name}.xml", suites[name][1], collected[name], rc)
+        for f, (n_collected, n_passed) in verdict.items():
+            log(f"phase 1d: {f}: {n_collected} collected, {n_passed} passed, 0 failed, "
+                f"0 errors, 0 skipped")
+        log(f"phase 1d: the {name} tests: {sum(p for _, p in verdict.values())} passed in "
+            f"{secs:.3f} s")
+    secs = time.perf_counter() - t0
+    log(f"phase 1d: the card-only tests in {secs:.3f} s wall, torch {torch.__version__}, "
+        f"card {card}")
+    return secs
 
 
 #: the reference serving tests' seed (demo-library scale, phase 6)
@@ -2852,7 +3028,7 @@ def main() -> int:
     tb_ms = tb_plain_ms = None
     for n, idx in enumerate(median):
         arrays, S = tape_arrays(idx)
-        _, C = ltsp_dp.ltsp_dp_tables(*arrays, device=dev, S=S)
+        C = ltsp_dp.ltsp_dp_tables(*arrays, device=dev, S=S)[1]  # T freed at once
         dets, counts = ltsp_dp.ltsp_traceback(C, arrays[2])
         host = traceback_detours(C[0].cpu().numpy(), arrays[2][0].cpu().numpy())
         got = [tuple(d) for d in dets[0, :int(counts[0])].tolist()]
@@ -2889,6 +3065,9 @@ def main() -> int:
         f"flushed first runs at {100 * tb_latency_ms / tb_cold_ms:.1f}% of it; the warm "
         f"walk ({tb_ms:.4f} ms, the same walk repeated, its cells in L2) is not comparable "
         f"with a bound of loads from device memory")
+
+    # ---- phase 1d: the card-only tests, under this machine's torch ------------
+    phases["1d card-only tests"] = card_only_tests(card)
 
     # ---- phase 2: cuda == python on the bench profile ----------------------
     t0 = time.perf_counter()
