@@ -160,6 +160,7 @@ from collections import OrderedDict
 from collections.abc import Mapping
 from typing import Callable, Protocol, runtime_checkable
 
+from ..obs.trace import HOST_SPANS
 from .context import (
     BACKENDS,
     DEFAULT_BACKEND,
@@ -804,6 +805,17 @@ def list_solvers() -> list[str]:
     return list(_REGISTRY)
 
 
+def _root_attrs(sp, policy: str, ctx: ExecutionContext, instances: list[Instance],
+                batch: bool) -> None:
+    """An ``ltsp.solve`` root span's attributes: the policy, the backend and
+    each instance's ``n_req`` and ``n`` (lists for a batch entry)."""
+    n_req = [inst.n_req for inst in instances]
+    n = [inst.n for inst in instances]
+    if not batch:
+        n_req, n = n_req[0], n[0]
+    sp.attrs.update(policy=policy, backend=ctx.backend, n_req=n_req, n=n)
+
+
 def solve(
     inst: Instance,
     policy: str = "dp",
@@ -819,17 +831,20 @@ def solve(
     spellings and forward into one (with a ``DeprecationWarning``).
     """
     ctx = resolve_context(context, backend=backend, cache=cache)
-    solver = get_solver(policy)
-    _check_backend(solver, ctx.backend)  # before the cache: no miss-count pollution
-    memo = ctx.cache
-    if memo is not None:
-        hit = memo.get(inst, policy, ctx.backend, ctx.numeric_policy, ctx.cand_tile)
-        if hit is not None:
-            return hit
-    res = solver.solve(inst, ctx)
-    if memo is not None:
-        memo.put(inst, policy, ctx.backend, res, ctx.numeric_policy, ctx.cand_tile)
-    return res
+    with HOST_SPANS.open("ltsp.solve") as sp:
+        if sp:
+            _root_attrs(sp, policy, ctx, [inst], batch=False)
+        solver = get_solver(policy)
+        _check_backend(solver, ctx.backend)  # before the cache: no miss-count pollution
+        memo = ctx.cache
+        if memo is not None:
+            hit = memo.get(inst, policy, ctx.backend, ctx.numeric_policy, ctx.cand_tile)
+            if hit is not None:
+                return hit
+        res = solver.solve(inst, ctx)
+        if memo is not None:
+            memo.put(inst, policy, ctx.backend, res, ctx.numeric_policy, ctx.cand_tile)
+        return res
 
 
 def solve_batch(
@@ -859,40 +874,43 @@ def solve_batch(
     deprecation shims, as in :func:`solve`.
     """
     ctx = resolve_context(context, backend=backend, cache=cache)
-    solver = get_solver(policy)
-    _check_backend(solver, ctx.backend)
-    memo = ctx.cache
-    if memo is None and not partial:
-        return solver.solve_batch(instances, ctx)
-    results: list[SolveResult | FailedSolve | None] = [
-        memo.get(inst, policy, ctx.backend, ctx.numeric_policy, ctx.cand_tile)
-        if memo is not None
-        else None
-        for inst in instances
-    ]
-    miss = [i for i, r in enumerate(results) if r is None]
-    if miss:
-        solved: list[SolveResult | FailedSolve]
-        if not partial:
-            solved = solver.solve_batch([instances[i] for i in miss], ctx)
-        else:
-            try:
+    with HOST_SPANS.open("ltsp.solve") as sp:
+        if sp:
+            _root_attrs(sp, policy, ctx, instances, batch=True)
+        solver = get_solver(policy)
+        _check_backend(solver, ctx.backend)
+        memo = ctx.cache
+        if memo is None and not partial:
+            return solver.solve_batch(instances, ctx)
+        results: list[SolveResult | FailedSolve | None] = [
+            memo.get(inst, policy, ctx.backend, ctx.numeric_policy, ctx.cand_tile)
+            if memo is not None
+            else None
+            for inst in instances
+        ]
+        miss = [i for i, r in enumerate(results) if r is None]
+        if miss:
+            solved: list[SolveResult | FailedSolve]
+            if not partial:
                 solved = solver.solve_batch([instances[i] for i in miss], ctx)
-            except Exception:
-                # the fast whole-batch path failed somewhere mid-bucket:
-                # fall back to per-instance solves so the good ones survive
-                solved = []
-                for i in miss:
-                    try:
-                        solved.append(solver.solve(instances[i], ctx))
-                    except Exception as err:  # noqa: BLE001 - typed re-wrap
-                        solved.append(FailedSolve(policy, ctx.backend, i, err))
-        for i, res in zip(miss, solved):
-            if isinstance(res, SolveResult) and memo is not None:
-                memo.put(instances[i], policy, ctx.backend, res,
-                         ctx.numeric_policy, ctx.cand_tile)
-            results[i] = res
-    return results  # type: ignore[return-value]
+            else:
+                try:
+                    solved = solver.solve_batch([instances[i] for i in miss], ctx)
+                except Exception:
+                    # the fast whole-batch path failed somewhere mid-bucket:
+                    # fall back to per-instance solves so the good ones survive
+                    solved = []
+                    for i in miss:
+                        try:
+                            solved.append(solver.solve(instances[i], ctx))
+                        except Exception as err:  # noqa: BLE001 - typed re-wrap
+                            solved.append(FailedSolve(policy, ctx.backend, i, err))
+            for i, res in zip(miss, solved):
+                if isinstance(res, SolveResult) and memo is not None:
+                    memo.put(instances[i], policy, ctx.backend, res,
+                             ctx.numeric_policy, ctx.cand_tile)
+                results[i] = res
+        return results  # type: ignore[return-value]
 
 
 def solve_warm(
@@ -915,32 +933,35 @@ def solve_warm(
     that did no DP work at all).
     """
     ctx = context if context is not None else DEFAULT_CONTEXT
-    solver = get_solver(policy)
-    _check_backend(solver, ctx.backend)
-    memo = ctx.cache
-    if memo is not None:
-        hit = memo.get(inst, policy, ctx.backend, ctx.numeric_policy, ctx.cand_tile)
-        if hit is not None:
-            if ctx.obs is not None:
-                ctx.obs.inc(
-                    "solves_total", policy=policy, backend=ctx.backend,
-                    mode="cache",
-                )
-            return hit, warm, WarmStats(mode="cache")
-    if getattr(solver, "supports_warm", False):
-        res, new_warm, stats = solver.solve_warm(inst, ctx, warm=warm)
-    else:
-        res, new_warm, stats = (
-            solver.solve(inst, ctx), None, WarmStats(mode="unsupported")
-        )
-    if memo is not None:
-        memo.put(inst, policy, ctx.backend, res, ctx.numeric_policy, ctx.cand_tile)
-    if ctx.obs is not None:
-        ctx.obs.inc(
-            "solves_total", policy=policy, backend=ctx.backend, mode=stats.mode
-        )
-        ctx.obs.observe("solve_cells", stats.cells_evaluated, policy=policy)
-    return res, new_warm, stats
+    with HOST_SPANS.open("ltsp.solve") as sp:
+        if sp:
+            _root_attrs(sp, policy, ctx, [inst], batch=False)
+        solver = get_solver(policy)
+        _check_backend(solver, ctx.backend)
+        memo = ctx.cache
+        if memo is not None:
+            hit = memo.get(inst, policy, ctx.backend, ctx.numeric_policy, ctx.cand_tile)
+            if hit is not None:
+                if ctx.obs is not None:
+                    ctx.obs.inc(
+                        "solves_total", policy=policy, backend=ctx.backend,
+                        mode="cache",
+                    )
+                return hit, warm, WarmStats(mode="cache")
+        if getattr(solver, "supports_warm", False):
+            res, new_warm, stats = solver.solve_warm(inst, ctx, warm=warm)
+        else:
+            res, new_warm, stats = (
+                solver.solve(inst, ctx), None, WarmStats(mode="unsupported")
+            )
+        if memo is not None:
+            memo.put(inst, policy, ctx.backend, res, ctx.numeric_policy, ctx.cand_tile)
+        if ctx.obs is not None:
+            ctx.obs.inc(
+                "solves_total", policy=policy, backend=ctx.backend, mode=stats.mode
+            )
+            ctx.obs.observe("solve_cells", stats.cells_evaluated, policy=policy)
+        return res, new_warm, stats
 
 
 def solve_batch_warm(
@@ -957,41 +978,44 @@ def solve_batch_warm(
     :func:`solve_warm`; misses go to the backend in one warm-aware batch.
     """
     ctx = context if context is not None else DEFAULT_CONTEXT
-    solver = get_solver(policy)
-    _check_backend(solver, ctx.backend)
-    if warms is None:
-        warms = [None] * len(instances)
-    memo = ctx.cache
-    results: list[SolveResult | None] = [None] * len(instances)
-    new_warms: list[WarmState | None] = list(warms)
-    stats: list[WarmStats] = [WarmStats(mode="cache") for _ in instances]
-    if memo is not None:
-        for i, inst in enumerate(instances):
-            results[i] = memo.get(
-                inst, policy, ctx.backend, ctx.numeric_policy, ctx.cand_tile
-            )
-    miss = [i for i, r in enumerate(results) if r is None]
-    if miss:
-        if getattr(solver, "supports_warm", False):
-            solved, ws, sts = solver.solve_batch_warm(
-                [instances[i] for i in miss], ctx, warms=[warms[i] for i in miss]
-            )
-        else:
-            solved = solver.solve_batch([instances[i] for i in miss], ctx)
-            ws = [None] * len(miss)
-            sts = [WarmStats(mode="unsupported") for _ in miss]
-        for i, res, w, st in zip(miss, solved, ws, sts):
-            if memo is not None:
-                memo.put(instances[i], policy, ctx.backend, res,
-                         ctx.numeric_policy, ctx.cand_tile)
-            results[i], new_warms[i], stats[i] = res, w, st
-    if ctx.obs is not None:
-        for st in stats:
-            ctx.obs.inc(
-                "solves_total", policy=policy, backend=ctx.backend, mode=st.mode
-            )
-            ctx.obs.observe("solve_cells", st.cells_evaluated, policy=policy)
-    return results, new_warms, stats  # type: ignore[return-value]
+    with HOST_SPANS.open("ltsp.solve") as sp:
+        if sp:
+            _root_attrs(sp, policy, ctx, instances, batch=True)
+        solver = get_solver(policy)
+        _check_backend(solver, ctx.backend)
+        if warms is None:
+            warms = [None] * len(instances)
+        memo = ctx.cache
+        results: list[SolveResult | None] = [None] * len(instances)
+        new_warms: list[WarmState | None] = list(warms)
+        stats: list[WarmStats] = [WarmStats(mode="cache") for _ in instances]
+        if memo is not None:
+            for i, inst in enumerate(instances):
+                results[i] = memo.get(
+                    inst, policy, ctx.backend, ctx.numeric_policy, ctx.cand_tile
+                )
+        miss = [i for i, r in enumerate(results) if r is None]
+        if miss:
+            if getattr(solver, "supports_warm", False):
+                solved, ws, sts = solver.solve_batch_warm(
+                    [instances[i] for i in miss], ctx, warms=[warms[i] for i in miss]
+                )
+            else:
+                solved = solver.solve_batch([instances[i] for i in miss], ctx)
+                ws = [None] * len(miss)
+                sts = [WarmStats(mode="unsupported") for _ in miss]
+            for i, res, w, st in zip(miss, solved, ws, sts):
+                if memo is not None:
+                    memo.put(instances[i], policy, ctx.backend, res,
+                             ctx.numeric_policy, ctx.cand_tile)
+                results[i], new_warms[i], stats[i] = res, w, st
+        if ctx.obs is not None:
+            for st in stats:
+                ctx.obs.inc(
+                    "solves_total", policy=policy, backend=ctx.backend, mode=st.mode
+                )
+                ctx.obs.observe("solve_cells", st.cells_evaluated, policy=policy)
+        return results, new_warms, stats  # type: ignore[return-value]
 
 
 def solve_warm_degraded(

@@ -75,6 +75,7 @@ planner entirely (one tight launch, no grouping pass).
 from __future__ import annotations
 
 import math
+import threading
 import time
 
 import numpy as np
@@ -82,6 +83,7 @@ import torch
 
 from ...core.instance import Instance, virtual_lb
 from ...core.warm import DenseStore, WarmState, WarmStats, align_warm, warm_from_instance
+from ...obs.trace import HOST_SPANS
 from .ltsp_dp import DEFAULT_CAND_TILE, ltsp_dp_tables, ltsp_traceback
 from .ref import ltsp_dp_tables_ref
 
@@ -108,9 +110,11 @@ HOST_BYTES = {"copied": 0}
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    """``t`` as a host numpy array, counting the bytes of a device copy."""
+    """``t`` as a host numpy array, counting the bytes of a device copy
+    (and, into the open host-clock span, the copy)."""
     if t.device.type != "cpu":
         HOST_BYTES["copied"] += t.numel() * t.element_size()
+    HOST_SPANS.count_copy(t)
     return t.cpu().numpy()
 
 
@@ -144,7 +148,9 @@ def _tensor(values, dtype: torch.dtype, device) -> torch.Tensor:
     """numpy values → tensor; the type conversion happens in numpy, as it
     does in the JAX package, so both round identically."""
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-    return torch.from_numpy(np.asarray(values).astype(np_dtype)).to(device)
+    host = torch.from_numpy(np.asarray(values).astype(np_dtype))
+    HOST_SPANS.count_copy(host)
+    return host.to(device)
 
 
 def _check_backend(backend: str, device) -> None:
@@ -354,6 +360,29 @@ def ltsp_solve_instance(
                             device=device)[0]
 
 
+#: per thread, the pair of CUDA timing events the armed ``ltsp.tables``
+#: span records on each device; a pair is read before its next use, so
+#: creating and destroying events (tens of us each) happens once, not every
+#: solve
+_TIMERS = threading.local()
+
+
+def _build_timer(device: torch.device):
+    """``(begin, end, stream)``: the timing-event pair of ``device``, its
+    first event recorded now on the device's current stream (where the
+    kernels are issued); ``None`` off the card."""
+    if device.type != "cuda":
+        return None
+    pairs = _TIMERS.__dict__.setdefault("pairs", {})
+    if device not in pairs:
+        pairs[device] = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+    begin, end = pairs[device]
+    stream = torch.cuda.current_stream(device)
+    begin.record(stream)
+    return begin, end, stream
+
+
 def _solve_packed(
     originals: list[Instance],
     scaled: list[Instance],
@@ -382,53 +411,84 @@ def _solve_packed(
     the launch's gcd-rescaled units together with ``g``, so lookups
     reconstruct original-unit values with python-int arithmetic).  The
     device tables are released before returning.
+
+    Each stretch sits in a span of the host-clock log
+    :data:`~repro_torch.obs.trace.HOST_SPANS` (``ltsp.prepare``,
+    ``ltsp.tables``, ``ltsp.wait``, ``ltsp.traceback``, ``ltsp.finish``).
+    Armed on a CUDA device, two CUDA events also time the table build,
+    read inside the wait that follows it (``device_ns`` of ``ltsp.tables``).
     """
-    left, right, x, nl, u, S = prepare_batch(
-        scaled, dtype=dtype, R_pad=R_pad, S_pad=S_pad, B_pad=B_pad, device=device
-    )
+    with HOST_SPANS.open("ltsp.prepare"):
+        left, right, x, nl, u, S = prepare_batch(
+            scaled, dtype=dtype, R_pad=R_pad, S_pad=S_pad, B_pad=B_pad, device=device
+        )
     tables = ltsp_dp_tables if backend == "cuda" else ltsp_dp_tables_ref
-    T, C = tables(
-        left, right, x, nl, u, S=S, span=span, disjoint=disjoint,
-        cand_tile=cand_tile,
-    )
+    timer = None  # armed on a CUDA device only
+    with HOST_SPANS.open("ltsp.tables") as build:
+        if build:
+            timer = _build_timer(left.device)
+        T, C = tables(
+            left, right, x, nl, u, S=S, span=span, disjoint=disjoint,
+            cand_tile=cand_tile,
+        )
+        if timer:
+            timer[1].record(timer[2])
     R = left.shape[1]
-    T_root = _to_host(T[:, 0, R - 1, 0])
+    with HOST_SPANS.open("ltsp.wait") as sp:
+        T_root = _to_host(T[:, 0, R - 1, 0])
+        if sp:
+            sp.attrs["what"] = "root"
+        if timer:  # the copy has waited past the end event: no new sync
+            build.attrs["device_ns"] = round(timer[0].elapsed_time(timer[1]) * 1e6)
     if backend == "cuda" and not capture:
         # the traceback runs on the card: only the detours come to the host
-        dets_dev, counts_dev = ltsp_traceback(C, x)
+        with HOST_SPANS.open("ltsp.traceback"):
+            dets_dev, counts_dev = ltsp_traceback(C, x)
         del T, C  # free this bucket's device tables before the next one
-        dets_all, counts = _to_host(dets_dev), _to_host(counts_dev)
+        with HOST_SPANS.open("ltsp.wait") as sp:
+            dets_all, counts = _to_host(dets_dev), _to_host(counts_dev)
+            if sp:
+                sp.attrs["what"] = "detours"
         if (counts < 0).any():
             raise RuntimeError("device traceback met an argmin plane that is not a DP's")
-        walks = [[tuple(d) for d in dets_all[i, :counts[i]].tolist()]
-                 for i in range(len(originals))]
         C_host = T_host = None
     else:
         # whole planes go to the host: DenseStore needs them, and the
         # host walk replays C
-        C_host = _to_host(C)
-        T_host = _to_host(T) if capture else None
-        del T, C  # free this bucket's device tables before the next one
-        x_host = _to_host(x)
-        walks = [traceback_detours(C_host[i], x_host[i]) for i in range(len(originals))]
-    out = []
-    stores: list[DenseStore | None] = []
-    for i, (inst, g) in enumerate(zip(originals, gs)):
-        dets = walks[i]
-        # padding only ever skips, so emitted detours stay within the real
-        # files; guard the invariant anyway.
-        assert all(b < inst.n_req for _, b in dets)
-        # the scaled table is exactly 1/g of the original's (see
-        # rescale_instance); VirtualLB comes from the original coordinates.
-        cost = g * int(T_root[i]) + virtual_lb(inst)
-        out.append((cost, dets))
-        if capture:
-            prefix = np.cumsum(inst.mult).tolist()
-            stores.append(
-                DenseStore(T_host[i].copy(), C_host[i].copy(), g, inst.n, prefix)
-            )
-        else:
-            stores.append(None)
+        with HOST_SPANS.open("ltsp.wait") as sp:
+            C_host = _to_host(C)
+            T_host = _to_host(T) if capture else None
+            del T, C  # free this bucket's device tables before the next one
+            x_host = _to_host(x)
+            if sp:
+                sp.attrs["what"] = "planes"
+        with HOST_SPANS.open("ltsp.traceback"):
+            walks = [traceback_detours(C_host[i], x_host[i]) for i in range(len(originals))]
+    with HOST_SPANS.open("ltsp.finish") as sp:
+        if C_host is None:
+            walks = [[tuple(d) for d in dets_all[i, :counts[i]].tolist()]
+                     for i in range(len(originals))]
+        out = []
+        stores: list[DenseStore | None] = []
+        for i, (inst, g) in enumerate(zip(originals, gs)):
+            dets = walks[i]
+            # padding only ever skips, so emitted detours stay within the real
+            # files; guard the invariant anyway.
+            assert all(b < inst.n_req for _, b in dets)
+            # the scaled table is exactly 1/g of the original's (see
+            # rescale_instance); VirtualLB comes from the original coordinates.
+            cost = g * int(T_root[i]) + virtual_lb(inst)
+            out.append((cost, dets))
+            if capture:
+                prefix = np.cumsum(inst.mult).tolist()
+                stores.append(
+                    DenseStore(T_host[i].copy(), C_host[i].copy(), g, inst.n, prefix)
+                )
+            else:
+                stores.append(None)
+        if sp and capture:
+            sp.attrs["store_bytes"] = sum(T_host[i].nbytes + C_host[i].nbytes
+                                          for i in range(len(originals)))
     return out, stores
 
 
@@ -463,7 +523,7 @@ def ltsp_solve_batch(
     docstring); the int32-safe ones still take the int32 launches unchanged.
 
     ``capture=True`` changes the return to ``(results, stores)`` where
-    ``stores[i]`` is a :class:`~repro.core.warm.DenseStore` snapshot of
+    ``stores[i]`` is a :class:`~repro_torch.core.warm.DenseStore` snapshot of
     instance ``i``'s dense value/argmin planes — the raw material for
     warm-starting the next solve of a perturbed sibling (see
     :func:`ltsp_solve_batch_warm`).
@@ -479,17 +539,18 @@ def ltsp_solve_batch(
     if not instances:
         return ([], []) if capture else []
     _check_backend(backend, device)
-    pairs = [rescale_instance(inst) for inst in instances]
-    scaled = [p[0] for p in pairs]
-    gs = [p[1] for p in pairs]
-    if numeric_policy == "f64":
-        wide = [i for i, s in enumerate(scaled) if _table_bound(s) >= 2**31]
-        _check_f64_safe([scaled[i] for i in wide])
-    else:
-        wide = []
-        _check_int32_safe(scaled)
-    wide_set = set(wide)
-    narrow = [i for i in range(len(instances)) if i not in wide_set]
+    with HOST_SPANS.open("ltsp.prepare"):
+        pairs = [rescale_instance(inst) for inst in instances]
+        scaled = [p[0] for p in pairs]
+        gs = [p[1] for p in pairs]
+        if numeric_policy == "f64":
+            wide = [i for i, s in enumerate(scaled) if _table_bound(s) >= 2**31]
+            _check_f64_safe([scaled[i] for i in wide])
+        else:
+            wide = []
+            _check_int32_safe(scaled)
+        wide_set = set(wide)
+        narrow = [i for i in range(len(instances)) if i not in wide_set]
 
     stores: list[DenseStore | None] = [None] * len(instances)
 
@@ -630,11 +691,12 @@ def ltsp_solve_batch_warm(
         warms = [None] * len(instances)
     # same guard discipline as the cold path (before any solving: a batch
     # never fails mid-flight)
-    scaled = [rescale_instance(inst)[0] for inst in instances]
-    if numeric_policy == "f64":
-        _check_f64_safe([s for s in scaled if _table_bound(s) >= 2**31])
-    else:
-        _check_int32_safe(scaled)
+    with HOST_SPANS.open("ltsp.prepare"):
+        scaled = [rescale_instance(inst)[0] for inst in instances]
+        if numeric_policy == "f64":
+            _check_f64_safe([s for s in scaled if _table_bound(s) >= 2**31])
+        else:
+            _check_int32_safe(scaled)
 
     from ...core.dp import dp_schedule_warm
 

@@ -16,7 +16,11 @@ Three machine-readable views of one instrumented run:
   Perfetto / ``chrome://tracing``): one *process* per fleet shard, one
   *thread lane* per span track (one per drive, plus queue/router lanes),
   timestamps in **virtual microseconds** (``ts``/``dur`` are the exact
-  virtual-time integers; the UI's microsecond unit is nominal).
+  virtual-time integers; the UI's microsecond unit is nominal).  With
+  ``host=`` (a :class:`~repro_torch.obs.trace.HostTracer`) the host-clock
+  spans join in a process lane of their own, ``ts`` in host-clock
+  microseconds (Unix epoch, a ``torch.profiler`` trace's clock), so the
+  document loads beside a profiler trace.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import json
 import os
 
 from .metrics import MetricsRegistry
-from .trace import Span, Tracer
+from .trace import HostTracer, Span, Tracer
 
 __all__ = [
     "spans_jsonl",
@@ -122,7 +126,7 @@ def write_prometheus(registry: MetricsRegistry, path: str | os.PathLike) -> None
 # ---------------------------------------------------------------------------
 # Chrome trace_event JSON (Perfetto / chrome://tracing)
 # ---------------------------------------------------------------------------
-def chrome_trace(tracer: Tracer) -> dict:
+def chrome_trace(tracer: Tracer | None, host: HostTracer | None = None) -> dict:
     """The tracer's spans in Chrome ``trace_event`` form.
 
     One *process* (``pid``) per shard, one *thread* (``tid``) per distinct
@@ -130,9 +134,14 @@ def chrome_trace(tracer: Tracer) -> dict:
     drive.  Complete spans emit ``ph: "X"`` with ``ts``/``dur`` in virtual
     microseconds; instants emit thread-scoped ``ph: "i"`` marks.  Metadata
     records name every process/lane, and all ordering is deterministic.
+    ``host``'s spans follow in one more process, ``host``, a lane per
+    thread, ``ts``/``dur`` in host-clock microseconds, each span's ``seq``,
+    ``parent`` and ``solve`` among its ``args``; without it the document is
+    the virtual-time one alone.
     """
+    spans = tracer.spans if tracer is not None else []
     tracks: dict[int, list[str]] = {}
-    for s in tracer.spans:
+    for s in spans:
         names = tracks.setdefault(s.shard, [])
         if s.track not in names:
             names.append(s.track)
@@ -160,7 +169,7 @@ def chrome_trace(tracer: Tracer) -> dict:
                     "args": {"name": track},
                 }
             )
-    for s in tracer.spans:
+    for s in spans:
         tid = tracks[s.shard].index(s.track)
         ev = {
             "name": s.name,
@@ -177,14 +186,37 @@ def chrome_trace(tracer: Tracer) -> dict:
             ev["ph"] = "X"
             ev["dur"] = s.duration
         events.append(ev)
-    return {
+    doc = {
         "traceEvents": events,
         "displayTimeUnit": "ms",
         "otherData": {"clock": "virtual-microseconds"},
     }
+    if host is not None:
+        _add_host_lane(doc, host)
+    return doc
 
 
-def write_chrome_trace(tracer: Tracer, path: str | os.PathLike) -> None:
+def _add_host_lane(doc: dict, host: HostTracer) -> None:
+    events = doc["traceEvents"]
+    pid = 1 + max((e["pid"] for e in events), default=-1)
+    lanes = sorted({s.track for s in host.spans})
+    events.append({"ph": "M", "pid": pid, "tid": 0, "name": "process_name",
+                   "args": {"name": "host"}})
+    for tid, lane in enumerate(lanes):
+        events.append({"ph": "M", "pid": pid, "tid": tid, "name": "thread_name",
+                       "args": {"name": lane}})
+    for s in sorted(host.spans, key=lambda s: s.seq):
+        events.append({
+            "name": s.name, "cat": s.cat, "ph": "X", "pid": pid, "tid": lanes.index(s.track),
+            "ts": s.t0 / 1e3, "dur": (s.t1 - s.t0) / 1e3,
+            "args": {**s.attrs, "seq": s.seq, "parent": s.parent, "solve": s.solve},
+        })
+    doc["otherData"]["host_clock"] = "unix-epoch-microseconds"
+    doc["otherData"]["host_dropped"] = host.dropped
+
+
+def write_chrome_trace(tracer: Tracer | None, path: str | os.PathLike,
+                       host: HostTracer | None = None) -> None:
     with open(path, "w", encoding="utf-8") as fh:
-        json.dump(chrome_trace(tracer), fh, sort_keys=True, separators=(",", ":"))
+        json.dump(chrome_trace(tracer, host), fh, sort_keys=True, separators=(",", ":"))
         fh.write("\n")

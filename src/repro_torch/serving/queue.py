@@ -170,6 +170,12 @@ cell work) into the bundle's tracer and metrics registry — exported by
 Every hook records integers the loop already computed, after the journal
 write, so with ``obs`` unset (the default) timelines, reports, and
 journals are bit-identical to the uninstrumented server.
+
+Apart from that, each dispatch's solve call sits in an ``ltsp.dispatch``
+span of the host-clock log :data:`repro_torch.obs.trace.HOST_SPANS` (its
+attributes: the virtual time ``t``, the requests and tapes it serves), the
+parent of the ``ltsp.solve`` spans it causes; the log records only while
+armed, and never into the bundle's virtual-time tracer.
 """
 
 from __future__ import annotations
@@ -193,6 +199,7 @@ from ..core.solver import (
     solve_warm_degraded,
 )
 from ..core.verify import verify_schedule
+from ..obs.trace import HOST_SPANS
 from ..storage.tape import PendingQueue, TapeLibrary
 from .drives import (
     DriveCosts,
@@ -1022,11 +1029,15 @@ class OnlineTapeServer:
                 inst, names = tape.instance(_multiset(batch))
                 prepared.append((tape, inst, names))
             try:
-                results, new_warms, stats, rec = self._solve_batch_tick(
-                    [inst for _, inst, _ in prepared],
-                    [self._get_warm(t.tape_id, pol) for t, _, _ in prepared],
-                    policy=pol,
-                )
+                with HOST_SPANS.open("ltsp.dispatch") as sp:
+                    if sp:
+                        sp.attrs.update(t=now, n_requests=sum(len(b) for *_, b in picks),
+                                        n_tapes=len(picks))
+                    results, new_warms, stats, rec = self._solve_batch_tick(
+                        [inst for _, inst, _ in prepared],
+                        [self._get_warm(t.tape_id, pol) for t, _, _ in prepared],
+                        policy=pol,
+                    )
             except SolverUnavailableError:
                 if self.retry.on_exhausted == "error":
                     raise
@@ -1144,7 +1155,10 @@ class OnlineTapeServer:
             tape = self.lib.tape_of(batch[0].name)
             inst, names = tape.instance(_multiset(batch))
             try:
-                res, stats, degraded_to = self._solve_one(tape.tape_id, inst, pol)
+                with HOST_SPANS.open("ltsp.dispatch") as sp:
+                    if sp:
+                        sp.attrs.update(t=now, n_requests=len(batch), n_tapes=1)
+                    res, stats, degraded_to = self._solve_one(tape.tape_id, inst, pol)
             except SolverUnavailableError:
                 if self.retry.on_exhausted == "error":
                     raise
