@@ -2807,7 +2807,8 @@ def main() -> int:
     from repro_torch.data import BENCH_PROFILE, PAPER_PROFILE, generate_dataset, u_turn_values
     from repro_torch.kernels.ltsp_dp import build, ltsp_dp, ops
     from repro_torch.kernels.ltsp_dp.ops import (
-        _table_bound, bucket_shape, prepare_batch, rescale_instance, traceback_detours,
+        _table_bound, bucket_shape, prepare_batch, rescale_instance, tight_shape,
+        traceback_detours,
     )
     from repro_torch.kernels.ltsp_dp.ref import (
         far_fold, init_tables, ltsp_dp_tables_ref, ltsp_dp_tables_tiled_ref, near_update,
@@ -2961,9 +2962,10 @@ def main() -> int:
     log(f"paper profile: {len(paper)} tapes, U = {u_half}, {len(wide)} fail the int32 guard")
     median = by_bucket[MEDIAN_BUCKET]
 
-    def tape_arrays(idx):
+    def tape_arrays(idx, shape=tight_shape):
+        # at the shape an uncaptured f64 solve builds at, unless told otherwise
         scaled = rescale_instance(paper[idx])[0]
-        R_pad, S_pad = bucket_shape(scaled)
+        R_pad, S_pad = shape(scaled)
         *arrays, S = prepare_batch([scaled], dtype=torch.float64, R_pad=R_pad, S_pad=S_pad,
                                    device=dev)
         return arrays, S
@@ -3027,7 +3029,7 @@ def main() -> int:
     t0 = time.perf_counter()
     tb_ms = tb_plain_ms = None
     for n, idx in enumerate(median):
-        arrays, S = tape_arrays(idx)
+        arrays, S = tape_arrays(idx, bucket_shape)  # MEDIAN_BUCKET, as its bound
         C = ltsp_dp.ltsp_dp_tables(*arrays, device=dev, S=S)[1]  # T freed at once
         dets, counts = ltsp_dp.ltsp_traceback(C, arrays[2])
         host = traceback_detours(C[0].cpu().numpy(), arrays[2][0].cpu().numpy())
@@ -3141,9 +3143,14 @@ def main() -> int:
     log(f"phase 3: dp on the {len(big)} R_pad = {DENSE_R_MAX} tapes in "
         f"{phases[f'3 dp (R_pad = {DENSE_R_MAX})']:.3f} s, host bytes "
         f"{ops.HOST_BYTES['copied'] - host_before}")
-    t_gib = [8 * bucket_shape(paper[i])[0] ** 2 * bucket_shape(paper[i])[1] / 2**30 for i in huge]
-    log(f"phase 3: left out the {len(huge)} tapes with R_pad > {DENSE_R_MAX}: a dense f64 T "
-        f"alone is {min(t_gib):.0f}-{max(t_gib):.0f} GiB, more than the card holds")
+    # T (float64) and C (int32) of a tape at a shape, in GB
+    tc_gb = [[12 * R * R * S / 1e9 for R, S in (bucket_shape(paper[i]), tight_shape(paper[i]))]
+             for i in huge]
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    log(f"phase 3: left out the {len(huge)} tapes with R_pad > {DENSE_R_MAX}: T and C "
+        f"{min(b for b, _ in tc_gb):.0f}-{max(b for b, _ in tc_gb):.0f} GB at the bucket "
+        f"shape, {min(t for _, t in tc_gb):.1f}-{max(t for _, t in tc_gb):.1f} GB at the tight "
+        f"one, {sum(t < card_gb for _, t in tc_gb)} of them below the card's {card_gb:.1f} GB")
 
     # ---- phase 4: a served schedule -----------------------------------------
     t0 = time.perf_counter()
@@ -3172,7 +3179,7 @@ def main() -> int:
     buckets = []
     for shape in sorted({bucket_shape(paper[i]) for i in fits}):
         idx = by_bucket[shape][0]
-        arrays, S = tape_arrays(idx)
+        arrays, S = tape_arrays(idx, bucket_shape)
         kw = dict(S=S, span=None, disjoint=False, cand_tile=ltsp_dp.DEFAULT_CAND_TILE)
         ltsp_dp.ltsp_dp_tables(*arrays, device=dev, **kw)
         k_ms = events_ms(lambda: ltsp_dp.ltsp_dp_tables(*arrays, device=dev, **kw), reps=2)
@@ -3195,9 +3202,9 @@ def main() -> int:
     kern_total = sum(b["kernel_ms"] * b["tapes"] for b in buckets) / 1e3
     rest_total = sum((b["traceback_ms"] + b["copy_ms"]) * b["tapes"] for b in buckets) / 1e3
     phases["5 per-bucket timing"] = time.perf_counter() - t0
-    log(f"phase 5: dp main path = {kern_total:.3f} s tiled build + {rest_total:.3f} s traceback "
-        f"and copy (per-bucket CUDA events and host clock x tapes) of "
-        f"{phases['3 dp main path']:.3f} s wall")
+    log(f"phase 5: dp main path at bucket shapes = {kern_total:.3f} s tiled build + "
+        f"{rest_total:.3f} s traceback and copy (per-bucket CUDA events and host clock x "
+        f"tapes); phase 3 built at tight shapes in {phases['3 dp main path']:.3f} s wall")
 
     # ---- phase 6: serving exactness on the card ----------------------------
     t0 = time.perf_counter()

@@ -67,9 +67,13 @@ Bucket-rounding policy (applies to every padded dimension):
 
 Powers-of-two rounding bounds the set of distinct launch shapes
 logarithmically; within a bucket, padding waste is at most 2x per dimension
-instead of unbounded.
+instead of unbounded.  The float64 launches without ``capture`` are the
+exception: their tables never leave the device, so each runs alone at its
+:func:`tight_shape` (``R`` to the tile, ``S`` to 128) wherever that takes the
+bucket shape's scan form (``R - 1 <= cand_tile``), and only int32 and
+captured launches keep the bucket shape.
 ``ltsp_solve_batch([])`` returns ``[]`` and single-instance batches skip the
-planner entirely (one tight launch, no grouping pass).
+planner entirely (one launch at its bucket shape, no grouping pass).
 """
 
 from __future__ import annotations
@@ -84,7 +88,7 @@ import torch
 from ...core.instance import Instance, virtual_lb
 from ...core.warm import DenseStore, WarmState, WarmStats, align_warm, warm_from_instance
 from ...obs.trace import HOST_SPANS
-from .ltsp_dp import DEFAULT_CAND_TILE, ltsp_dp_tables, ltsp_traceback
+from .ltsp_dp import DEFAULT_CAND_TILE, TILE, ltsp_dp_tables, ltsp_traceback
 from .ref import ltsp_dp_tables_ref
 
 __all__ = [
@@ -92,6 +96,7 @@ __all__ = [
     "prepare_batch",
     "plan_buckets",
     "bucket_shape",
+    "tight_shape",
     "rescale_instance",
     "traceback_detours",
     "ltsp_dp_table",
@@ -134,6 +139,16 @@ def bucket_shape(inst: Instance) -> tuple[int, int]:
     of two, ``S = n + 1`` to the next power-of-two multiple of 128.
     """
     return _pow2(inst.n_req), 128 * _pow2(-(-(inst.n + 1) // 128))
+
+
+def tight_shape(inst: Instance) -> tuple[int, int]:
+    """``(R_pad, S_pad)`` of an uncaptured float64 launch: ``R`` to a whole
+    number of float64 tiles (so every far-fold tile is full; below one tile,
+    to its power of two, as the bucket has it), ``S = n + 1`` to a multiple
+    of 128.  Never larger than :func:`bucket_shape` in either dimension."""
+    tile = TILE["float64"]
+    R = _pow2(inst.n_req) if inst.n_req <= tile else tile * -(-inst.n_req // tile)
+    return R, _pad_s(inst.n + 1)
 
 
 def plan_buckets(instances: list[Instance]) -> dict[tuple[int, int], list[int]]:
@@ -198,11 +213,11 @@ def prepare_batch(
     """Pack instances into padded ``[B, R]`` tensors on ``device`` + shared ``S``.
 
     ``R_pad``/``S_pad``/``B_pad`` override the default tight padding (the
-    batch maxima) — the bucket planner passes its power-of-two bucket shape so
-    repeated launches share compiled programs.  File padding appends phantom
-    files (zero width, zero multiplicity) at each instance's rightmost
-    coordinate; batch padding appends all-phantom rows; see the module
-    docstring for why both are result-preserving.
+    batch maxima) — the bucket planner passes its power-of-two bucket shape,
+    an uncaptured float64 launch its :func:`tight_shape`.  File padding
+    appends phantom files (zero width, zero multiplicity) at each instance's
+    rightmost coordinate; batch padding appends all-phantom rows; see the
+    module docstring for why both are result-preserving.
     """
     if not instances:
         raise ValueError("prepare_batch needs at least one instance")
@@ -519,8 +534,10 @@ def ltsp_solve_batch(
 
     ``numeric_policy="f64"`` re-routes the instances that fail the int32
     magnitude guard after gcd/shift rescaling through an exact float64
-    table, one tight launch each, instead of raising (see the module
-    docstring); the int32-safe ones still take the int32 launches unchanged.
+    table, one launch each, instead of raising (see the module docstring):
+    at :func:`tight_shape`, or at :func:`bucket_shape` with ``capture`` or
+    where ``cand_tile`` lies between the two shapes' ``R - 1``.
+    The int32-safe ones still take the int32 launches unchanged.
 
     ``capture=True`` changes the return to ``(results, stores)`` where
     ``stores[i]`` is a :class:`~repro_torch.core.warm.DenseStore` snapshot of
@@ -530,7 +547,7 @@ def ltsp_solve_batch(
 
     ``profile`` takes any object with a ``wall`` flag and a ``record``
     method of the JAX package's ``KernelProfile`` signature: every table
-    build records its padded bucket shape, the exact real-vs-padded DP cell
+    build records the padded shape it ran at, the exact real-vs-padded DP cell
     counts, a signature whose fifth field says whether the plain version
     (``backend="torch"``) ran, and (when ``profile.wall`` is set) the host
     wall time around the build, the traceback and the copies to the host —
@@ -601,11 +618,18 @@ def ltsp_solve_batch(
 
     results: list[tuple[int, list[tuple[int, int]]] | None] = [None] * len(instances)
     if wide:
-        # float64: one tight launch per instance at its bucket shape, as in
-        # the JAX package, so launch shapes, cell counts and DenseStore sizes
-        # match it instance for instance.
+        # float64: one launch per instance.  Captured, at its bucket shape,
+        # as in the JAX package, so cell counts and DenseStore sizes match it;
+        # otherwise the tables never leave the device, and the launch runs at
+        # the instance's tight shape, unless a cand_tile between the two R
+        # would give it the other scan form (static when R - 1 <= cand_tile),
+        # whose sentinel rule can pick other detours.
         for i in wide:
             R_pad, S_pad = bucket_shape(scaled[i])
+            if not capture:
+                R_t, S_t = tight_shape(scaled[i])
+                if (R_t - 1 <= cand_tile) == (R_pad - 1 <= cand_tile):
+                    R_pad, S_pad = R_t, S_t
             [results[i]] = solve([i], R_pad, S_pad, None, dtype=torch.float64)
     if not narrow:
         return done(results)  # type: ignore[return-value]
@@ -613,7 +637,7 @@ def ltsp_solve_batch(
         for i, res in zip(narrow, solve(narrow, None, None, None)):
             results[i] = res
         return done(results)  # type: ignore[return-value]
-    if len(narrow) == 1:  # fast path: no planner, one tight launch
+    if len(narrow) == 1:  # fast path: no planner, one launch at its bucket shape
         [i] = narrow
         R_pad, S_pad = bucket_shape(scaled[i])
         [results[i]] = solve([i], R_pad, S_pad, None)

@@ -1,11 +1,12 @@
 """Kernel launch profiling: bucket shapes, padding waste, compile-vs-run.
 
 The device path (:mod:`repro_torch.kernels.ltsp_dp.ops`) builds one bucketed
-table per power-of-two ``(R, S, B)`` shape.  A :class:`KernelProfile`
+table per power-of-two ``(R, S, B)`` shape, and an uncaptured float64 table
+alone at its tight shape.  A :class:`KernelProfile`
 attached through ``ExecutionContext.obs`` records one
 :class:`LaunchRecord` per launch:
 
-* the padded bucket shape and the **exact** real-vs-padded DP cell counts
+* the padded shape that ran and the **exact** real-vs-padded DP cell counts
   (``padded = B_pad * R_pad * R_pad * S_pad``; ``real`` sums each
   instance's ``n_req^2 * (n + 1)`` table) — the padding-waste ratio the
   ROADMAP's ragged-grid item targets, as an exact fraction;

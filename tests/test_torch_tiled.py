@@ -294,6 +294,32 @@ def test_cuda_tiled_tables_match_tiled_plain_version(cuda_device, dtype_name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_req", [41, 136])
+def test_cuda_uncaptured_f64_solve_at_tight_shape(cuda_device, n_req):
+    """An uncaptured float64 solve on the card builds at ``tight_shape`` and
+    gives the plain version's answer and that of the card's captured build at
+    the bucket shape; at 41 also the port's python dp's (at 136 it takes
+    ~30 s of host Python, which the CPU tests spend on the banded policies)."""
+    from repro_torch.core import dp_schedule
+    from repro_torch.obs.kernel import KernelProfile
+    from test_torch_tight_f64 import wide_instance
+
+    inst = wide_instance(np.random.default_rng([SEED, 73, n_req]), n_req)
+    prof = KernelProfile(wall=False)
+    got = port_ops.ltsp_solve_batch([inst], numeric_policy="f64", device=cuda_device,
+                                    profile=prof)
+    [row] = prof.launches
+    assert (row.R_pad, row.S_pad) == port_ops.tight_shape(inst) != port_ops.bucket_shape(inst)
+    plain = port_ops.ltsp_solve_batch([inst], numeric_policy="f64", backend="torch",
+                                      device="cpu")
+    bucket, _ = port_ops.ltsp_solve_batch([inst], numeric_policy="f64", device=cuda_device,
+                                          capture=True)
+    assert got == plain == bucket
+    if n_req < 128:
+        assert got == [dp_schedule(inst)]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", list(TRACEBACK_CASES))
 def test_cuda_traceback_matches_plain_walk(cuda_device, case):
     (lo, hi), span, disjoint, n_inst, B_pad = TRACEBACK_CASES[case]
