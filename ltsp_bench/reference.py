@@ -7,9 +7,14 @@ width, every skip count at once, in the type it is given, and returns the
 root value (the optimum relative to *VirtualLB*) with a detour list walked
 from its argmin plane.  In float64 every value of the benchmark's tapes is
 an integer below 2**53, so the reference is exact; in float32 it is the
-control, which cannot be.  :func:`schedule_cost` replays a detour list as a
-head trajectory in Python integers and returns its objective, the sum of
-the requests' service times; :func:`virtual_lb` is the paper's lower bound.
+control, which cannot be.  The table ``T`` and its argmin plane ``C`` hold
+the windows ``a <= b`` only, window ``(a, b)`` at row
+``p(a, b) = a R - a (a - 1) / 2 + (b - a)`` of ``R (R + 1) / 2``: they take
+``(item + 4) R (R + 1) / 2 S`` bytes, 63.1 GB for the widest IN2P3 tape in
+float64 (``R`` 710, ``S`` 20,822), which fits the card once the program's
+state is freed.  :func:`schedule_cost` replays a detour list as a head
+trajectory in Python integers and returns its objective, the sum of the
+requests' service times; :func:`virtual_lb` is the paper's lower bound.
 
 The recurrence, for files ``a < b`` of the window and ``s`` skipped
 requests (``n_l`` the requests left of a file, ``x`` its multiplicity)::
@@ -37,6 +42,12 @@ def virtual_lb(left, size, mult, m: int, u_turn: int) -> int:
                for lo, sz, x in zip(left, size, mult))
 
 
+def row(a, b, R: int):
+    """Row of the window ``(a, b)``, ``a <= b``, in the tables ``a <= b``:
+    the windows ordered by ``a``, then ``b``."""
+    return a * R - a * (a - 1) // 2 + (b - a)
+
+
 def dp_solve(left, size, mult, u_turn: int, span: int | None, dtype: torch.dtype,
              device) -> tuple[float, list[tuple[int, int]]]:
     """``(T[0, R-1, 0], detours)`` of one tape's DP table in ``dtype``."""
@@ -52,10 +63,10 @@ def dp_solve(left, size, mult, u_turn: int, span: int | None, dtype: torch.dtype
     s = s_int.to(dtype)
     inf = torch.tensor(float("inf"), dtype=dtype, device=device)
 
-    T = torch.full((R * R, S), float("inf"), dtype=dtype, device=device)
-    C = torch.full((R * R, S), -1, dtype=torch.int32, device=device)
+    T = torch.full((R * (R + 1) // 2, S), float("inf"), dtype=dtype, device=device)
+    C = torch.full((R * (R + 1) // 2, S), -1, dtype=torch.int32, device=device)
     diag = torch.arange(R, device=device)
-    T[diag * R + diag] = 2 * (rf - lf)[:, None] * (s[None, :] + nlf[:, None])
+    T[row(diag, diag, R)] = 2 * (rf - lf)[:, None] * (s[None, :] + nlf[:, None])
     for d in range(1, R):
         k_lo = 1 if span is None else max(1, d - span)
         k = torch.arange(k_lo, d + 1, device=device)
@@ -65,21 +76,22 @@ def dp_solve(left, size, mult, u_turn: int, span: int | None, dtype: torch.dtype
             b = a + d
             # skip b: s + x(b) skipped requests one file to the left
             shifted = s_int[None, :] + x[b][:, None]
-            skip = torch.gather(T[a * R + b - 1], 1, shifted.clamp(max=S - 1))
+            skip = torch.gather(T[row(a, b - 1, R)], 1, shifted.clamp(max=S - 1))
             skip = torch.where(shifted < S, skip, inf)
             skip = (skip + 2 * (rf[b] - rf[b - 1])[:, None] * (s[None, :] + nlf[a][:, None])
                     + (2 * (lf[b] - rf[b - 1]) * xf[b])[:, None])
             # detour (c, b), c = a + k
             c = a[:, None] + k[None, :]
-            det = T[a[:, None] * R + c - 1] + T[c * R + b[:, None]]
+            det = T[row(a[:, None], c - 1, R)] + T[row(c, b[:, None], R)]
             det += (2 * (rf[b][:, None] - rf[c - 1]))[..., None] * (s[None, None, :]
                                                                    + nlf[a][:, None, None])
             det += 2 * u_turn * (s[None, None, :] + nlf[c][..., None])
             best, arg = det.min(dim=1)
             take = best < skip
-            T[a * R + b] = torch.where(take, best, skip)
-            C[a * R + b] = torch.where(take, (a[:, None] + k_lo + arg).to(torch.int32), -1)
-    root = float(T[R - 1, 0]) if R > 1 else float(T[0, 0])
+            p = row(a, b, R)
+            T[p] = torch.where(take, best, skip)
+            C[p] = torch.where(take, (a[:, None] + k_lo + arg).to(torch.int32), -1)
+    root = float(T[row(0, R - 1, R), 0])
     return root, _walk(C, [int(v) for v in mult], R)
 
 
@@ -100,7 +112,7 @@ def _walk(C: torch.Tensor, x: list[int], R: int) -> list[tuple[int, int]]:
     while work:
         a, b, s = work.pop()
         while a < b:
-            c = int(C[a * R + b, s])
+            c = int(C[row(a, b, R), s])
             if c == -1:
                 s += x[b]
                 b -= 1

@@ -10,7 +10,10 @@ from ltsp_bench import reference, roofline
 from ltsp_bench import tapes as tapegen
 from ltsp_bench.drivers import mounts
 
+from .test_bench_frozen import BENCH
 from .tiny import run_tiny, tiny_cell
+
+WORKLOADS = [w["name"] for w in BENCH["workloads"]]
 
 
 def random_tape(rng, R: int) -> dict:
@@ -42,6 +45,28 @@ def test_reference_equals_the_programs_python_dp(span):
                                            t["u_turn"], d) == cost
 
 
+@pytest.mark.parametrize("span", [None, 1, 3])
+def test_reference_in_blocks_inside_a_width_equals_the_programs_python_dp(monkeypatch, span):
+    """Tapes of 20-40 files, with blocks so small that a window width folds
+    in several: the tables ``a <= b`` still give the optimum, and the
+    detours walked from them replay to it."""
+    from repro_torch.core.dp import dp_schedule
+    from repro_torch.core.instance import make_instance
+
+    rng = np.random.default_rng(40 if span is None else 40 + span)
+    for _ in range(4):
+        t = random_tape(rng, int(rng.integers(20, 41)))
+        # a width of k candidates folds 5 // k windows a block: the first
+        # widths in blocks of several, from 5 one window a block
+        monkeypatch.setattr(reference, "BLOCK_ELEMENTS", 5 * (int(t["mult"].sum()) + 1))
+        inst = make_instance(t["left"], t["size"], t["mult"], m=t["m"], u_turn=t["u_turn"])
+        cost, _ = dp_schedule(inst, span=span)
+        got, dets = reference.solve(t, span, torch.float64, "cpu")
+        assert got == cost
+        assert reference.schedule_cost(t["left"], t["size"], t["mult"], t["m"], t["u_turn"],
+                                       dets) == cost
+
+
 def paper_tapes(count: int = 3) -> list[dict]:
     """The configuration's ``count`` smallest paper tapes."""
     from .test_bench_frozen import config
@@ -65,7 +90,7 @@ def test_float32_control_fails_where_float64_passes(policy):
     assert max(control.values()) > mounts.LIMITS["answer_gap"]
 
 
-@pytest.mark.parametrize("workload", ["in2p3-dp.mounts", "in2p3-logdp1.mounts"])
+@pytest.mark.parametrize("workload", WORKLOADS)
 def test_control_fails_each_tiny_cell(workload):
     """``control.py``'s readings at a tiny size: each seed's float32
     answers, through the driver's own check, read a gap over a limit."""
@@ -102,7 +127,7 @@ def suboptimal(monkeypatch, alter_cost: bool = False):
     monkeypatch.setattr(ops, "ltsp_solve_batch", broken)
 
 
-@pytest.mark.parametrize("workload", ["in2p3-dp.mounts", "in2p3-logdp1.mounts"])
+@pytest.mark.parametrize("workload", WORKLOADS)
 @pytest.mark.parametrize("alter_cost", [False, True])
 def test_a_broken_answer_is_not_correct(monkeypatch, workload, alter_cost):
     """An answer altered where it is produced: a suboptimal plan at its own

@@ -9,11 +9,14 @@ import pytest
 from ltsp_bench import cell as cells
 from ltsp_bench import tapes as tapegen
 
-CONFIGS = ("in2p3-dp", "in2p3-logdp1")
+BENCH = json.loads((cells.ROOT / "BENCHMARK.json").read_text())
+CONFIGS = tuple(c["name"] for c in BENCH["configs"])
 
 
 def config(name: str) -> dict:
-    return json.loads((cells.ROOT / cells.FOLDER / "configs" / f"{name}.json").read_text())
+    """The configuration ``BENCHMARK.json`` names ``name``, from its file."""
+    entry = next(c for c in BENCH["configs"] if c["name"] == name)
+    return json.loads((cells.ROOT / entry["file"]).read_text())
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -35,13 +38,38 @@ def test_tapes_equal_the_programs_dataset(name):
         assert (a["m"], a["u_turn"]) == (b.m, b.u_turn)
 
 
+#: the dataset's 8 tapes whose tables pad to 1024 windows (n_req 516-714)
+WIDE_TAPES = (3, 5, 13, 22, 76, 108, 123, 160)
+
+#: the tapes a configuration serves, by its ``max_r_pad``: every tape of
+#: the 169 but the widest at 512, all of them at 1024
+SERVED = {512: [i for i in range(169) if i not in WIDE_TAPES], 1024: list(range(169))}
+
+
 def test_the_tape_set_is_the_configurations():
     from ltsp_bench.drivers import mounts
 
     for name in CONFIGS:
-        kept = mounts.tape_set(config(name))
-        assert len(kept) == 161
-        assert max(len(t["left"]) for _, t in kept) <= 512
+        cfg = config(name)
+        kept = [i for i, _ in mounts.tape_set(cfg)]
+        assert len(kept) == cfg["tapes_served"]
+        if cfg["max_r_pad"] in SERVED:
+            assert kept == SERVED[cfg["max_r_pad"]]
+
+
+def test_a_configuration_at_1024_windows_serves_the_published_set():
+    """The in2p3-dp dataset at ``max_r_pad`` 1024 serves all its published
+    tapes; those past 512 windows are the 8 widest, n_req 516-714."""
+    from ltsp_bench.drivers import mounts
+
+    whole = config("in2p3-dp")
+    whole.update(max_r_pad=1024, tapes_served=whole["published_tapes"])
+    kept = dict(mounts.tape_set(whole))
+    assert list(kept) == SERVED[1024]
+    wide = [i for i, t in kept.items() if tapegen.pow2(len(t["left"])) > 512]
+    assert tuple(wide) == WIDE_TAPES
+    assert (min(len(kept[i]["left"]) for i in wide), max(len(kept[i]["left"]) for i in wide)) \
+        == (516, 714)
 
 
 @pytest.mark.parametrize("name", CONFIGS)

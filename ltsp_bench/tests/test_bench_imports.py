@@ -95,7 +95,8 @@ def test_a_run_loads_no_jax():
         torch.set_num_threads(1)
         from ltsp_bench.tests.tiny import run_tiny, tiny_cell
         from ltsp_bench.run import forbidden_modules
-        for wl in ("in2p3-dp.mounts", "in2p3-logdp1.mounts"):
+        from ltsp_bench.tests.test_bench_frozen import BENCH
+        for wl in [w["name"] for w in BENCH["workloads"]]:
             assert run_tiny(tiny_cell(wl), seconds=0.2)["correct"]
         print(forbidden_modules())
     """)

@@ -11,9 +11,14 @@ from ltsp_bench import tapes as tapegen
 TINY_PROFILE = dict(n_tapes=12, nf_median=40.0, nf_clip=[16, 80], n_req_cap=20, mult_cap=20)
 
 
-def tiny_config(name: str = "in2p3-dp", max_r_pad: int = 16) -> dict:
-    cfg = json.loads((cells.ROOT / cells.FOLDER / "configs" / f"{name}.json").read_text())
-    cfg = copy.deepcopy(cfg)
+def tiny_config(config: str | dict = "in2p3-dp", max_r_pad: int = 16) -> dict:
+    """``config`` (a configuration, or the name of one under ``configs/``) on
+    the tiny profile, serving the tapes that pad to at most ``max_r_pad``
+    windows."""
+    if isinstance(config, str):
+        config = json.loads((cells.ROOT / cells.FOLDER / "configs" / f"{config}.json")
+                            .read_text())
+    cfg = copy.deepcopy(config)
     ds = cfg["dataset"]
     ds["profile"].update(TINY_PROFILE)
     tapes = tapegen.generate_tapes(ds["profile"], ds["base_seed"], ds["u_turn"])
@@ -25,7 +30,7 @@ def tiny_config(name: str = "in2p3-dp", max_r_pad: int = 16) -> dict:
 def tiny_cell(workload: str):
     """The workload of ``BENCHMARK.json`` with a tiny configuration."""
     cell = cells.resolve(workload)
-    cell.config = tiny_config(cell.config["name"])
+    cell.config = tiny_config(cell.config)
     cell.traffic.update(check_extra=2)
     return cell
 
