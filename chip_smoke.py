@@ -125,9 +125,11 @@ def card_line() -> str:
 
 def bound_ms(R: int, S: int, B: int, type_name: str, span: int | None,
              disjoint: bool) -> tuple[float, str]:
-    """Least time for one table build: outputs written once vs candidate ops."""
+    """Least time for one table build: outputs written once vs candidate ops.
+    The outputs are the packed tables the solver's uncaptured builds store,
+    the windows ``a <= b`` alone."""
     item = 4 if type_name != "float64" else 8
-    out_bytes = B * R * R * S * (item + 4)  # T and C
+    out_bytes = B * R * (R + 1) // 2 * S * (item + 4)  # T and C, packed
     in_bytes = B * (4 * R * item + R * 4)  # left, right, nl, u; x
     cands = 0
     for d in range(1, R):
@@ -2812,7 +2814,7 @@ def main() -> int:
     )
     from repro_torch.kernels.ltsp_dp.ref import (
         far_fold, init_tables, ltsp_dp_tables_ref, ltsp_dp_tables_tiled_ref, near_update,
-        tile_schedule, traceback_ref,
+        root_values, tile_schedule, traceback_ref,
     )
     from repro_torch.serving.sim import replay_schedule
     from repro_torch.storage.tape import TapeLibrary
@@ -2975,7 +2977,9 @@ def main() -> int:
                                      (median[1], logdp_span(paper[median[1]].n_req, 5.0)))):
         arrays, S = tape_arrays(idx)
         R_pad = arrays[0].shape[1]
-        kw = dict(S=S, span=span, disjoint=False, cand_tile=ltsp_dp.DEFAULT_CAND_TILE)
+        # packed, as the solver's uncaptured builds store them
+        kw = dict(S=S, span=span, disjoint=False, cand_tile=ltsp_dp.DEFAULT_CAND_TILE,
+                  packed=True)
         Tk, Ck = ltsp_dp.ltsp_dp_tables(*arrays, device=dev, **kw)
         t1 = sync_now()
         Tp, Cp = ltsp_dp_tables_ref(*arrays, **kw)
@@ -2996,7 +3000,8 @@ def main() -> int:
             # are each timed alone (the far launches re-run on the finished
             # tables, which changes none of their work); the rest is a
             # difference, not a measurement
-            init_ms = events_ms(lambda: init_tables(arrays[0], arrays[1], arrays[3], S), reps=3)
+            init_ms = events_ms(lambda: init_tables(arrays[0], arrays[1], arrays[3], S, True),
+                                reps=3)
             n_tiles = -(-R_pad // ltsp_dp.TILE["float64"])
             far_ms = events_ms(lambda: [ltsp_dp.ltsp_far_fold(Tk, Ck, *arrays, D, span=None)
                                         for D in range(1, n_tiles)], reps=2)
@@ -3009,7 +3014,8 @@ def main() -> int:
             near_ms = tiled_ms - init_ms - far_ms
             timing = {"tape": idx, "R_pad": R_pad, "S_pad": S, "ms": tiled_ms,
                       "plain_ms": 1e3 * tiled_plain_s, "bound_ms": b_ms, "bound_by": b_by}
-            log(f"phase 1b: paper tape {idx} ({R_pad}, {S}) f64 dp: tiled build {tiled_ms:.3f} ms "
+            log(f"phase 1b: paper tape {idx} ({R_pad}, {S}) f64 dp: packed tiled build "
+                f"{tiled_ms:.3f} ms "
                 f"(set-up alone {init_ms:.3f} ms, far launches alone {far_ms:.3f} ms, build - "
                 f"set-up - far {near_ms:.3f} ms), bound {b_ms:.3f} ms "
                 f"({b_by}); plain: tiled {1e3 * tiled_plain_s:.3f} ms, per-diagonal "
@@ -3019,20 +3025,24 @@ def main() -> int:
                 f"{near_gb:.3f} GB for {near_c * S} near candidates, {near_gb / near_ms:.3f} TB/s "
                 f"over build - set-up - far")
         else:
-            log(f"phase 1b: paper tape {idx} ({R_pad}, {S}) f64 span={span}: bit-equal")
+            log(f"phase 1b: paper tape {idx} ({R_pad}, {S}) f64 span={span}: packed, bit-equal")
         del Tk, Ck
     torch.cuda.empty_cache()
     phases["1 kernels vs plain"] = time.perf_counter() - t0
     log(f"phase 1: all bit-equal, max_abs_err {max_err}, {phases['1 kernels vs plain']:.3f} s")
 
     # ---- phase 1c: the device traceback against the host walk ----------------
+    # the kernel walks the packed C the solver's uncaptured builds store; the
+    # host walk replays the dense C of the same tape
     t0 = time.perf_counter()
     tb_ms = tb_plain_ms = None
     for n, idx in enumerate(median):
         arrays, S = tape_arrays(idx, bucket_shape)  # MEDIAN_BUCKET, as its bound
-        C = ltsp_dp.ltsp_dp_tables(*arrays, device=dev, S=S)[1]  # T freed at once
+        C_dense = ltsp_dp.ltsp_dp_tables(*arrays, device=dev, S=S)[1]  # T freed at once
+        host = traceback_detours(C_dense[0].cpu().numpy(), arrays[2][0].cpu().numpy())
+        del C_dense
+        C = ltsp_dp.ltsp_dp_tables(*arrays, device=dev, S=S, packed=True)[1]
         dets, counts = ltsp_dp.ltsp_traceback(C, arrays[2])
-        host = traceback_detours(C[0].cpu().numpy(), arrays[2][0].cpu().numpy())
         got = [tuple(d) for d in dets[0, :int(counts[0])].tolist()]
         if got != host:
             raise SystemExit(f"phase 1c FAILED: tape {idx} device traceback != traceback_detours")
@@ -3056,7 +3066,8 @@ def main() -> int:
     load_ns = dependent_load_ns(dev, *MEDIAN_BUCKET)
     tb_latency_ms = (MEDIAN_BUCKET[0] - 1) * load_ns / 1e6
     phases["1c traceback vs host walk"] = time.perf_counter() - t0
-    log(f"phase 1c: ltsp_traceback == traceback_detours on {len(median)} median-bucket tapes; "
+    log(f"phase 1c: ltsp_traceback on packed C == traceback_detours on dense C on "
+        f"{len(median)} median-bucket tapes; "
         f"at ({MEDIAN_BUCKET[0]}, {MEDIAN_BUCKET[1]}) kernel {tb_ms:.4f} ms (L2 flushed "
         f"first: {tb_cold_ms:.4f} ms), plain walk {tb_plain_ms:.3f} ms, bound "
         f"{tb_bound:.7f} ms ({tb_by}), {phases['1c traceback vs host walk']:.3f} s")
@@ -3180,14 +3191,15 @@ def main() -> int:
     for shape in sorted({bucket_shape(paper[i]) for i in fits}):
         idx = by_bucket[shape][0]
         arrays, S = tape_arrays(idx, bucket_shape)
-        kw = dict(S=S, span=None, disjoint=False, cand_tile=ltsp_dp.DEFAULT_CAND_TILE)
+        kw = dict(S=S, span=None, disjoint=False, cand_tile=ltsp_dp.DEFAULT_CAND_TILE,
+                  packed=True)
         ltsp_dp.ltsp_dp_tables(*arrays, device=dev, **kw)
         k_ms = events_ms(lambda: ltsp_dp.ltsp_dp_tables(*arrays, device=dev, **kw), reps=2)
         T, C = ltsp_dp.ltsp_dp_tables(*arrays, device=dev, **kw)
         t_ms = events_ms(lambda: ltsp_dp.ltsp_traceback(C, arrays[2]), reps=3)
         dets, counts = ltsp_dp.ltsp_traceback(C, arrays[2])
         t1 = sync_now()
-        for t in (T[:, 0, shape[0] - 1, 0], dets, counts):
+        for t in (root_values(T, shape[0]), dets, counts):
             t.cpu()
         c_ms = 1e3 * (time.perf_counter() - t1)
         del T, C
@@ -3202,7 +3214,7 @@ def main() -> int:
     kern_total = sum(b["kernel_ms"] * b["tapes"] for b in buckets) / 1e3
     rest_total = sum((b["traceback_ms"] + b["copy_ms"]) * b["tapes"] for b in buckets) / 1e3
     phases["5 per-bucket timing"] = time.perf_counter() - t0
-    log(f"phase 5: dp main path at bucket shapes = {kern_total:.3f} s tiled build + "
+    log(f"phase 5: dp main path at bucket shapes, packed = {kern_total:.3f} s tiled build + "
         f"{rest_total:.3f} s traceback and copy (per-bucket CUDA events and host clock x "
         f"tapes); phase 3 built at tight shapes in {phases['3 dp main path']:.3f} s wall")
 

@@ -41,18 +41,19 @@ _IP = ctypes.POINTER(ctypes.c_int)
 SOURCES: dict[str, dict[str, tuple[list, type]]] = {
     "ltsp_tiled": {
         **{f"ltsp_tile_size_{t}": ([], _I) for t in TYPE_SUFFIX.values()},
-        # T, C, right, nl, u, B, R, S, D, span, disjoint, stream
-        **{f"ltsp_far_fold_{t}": ([_P] * 5 + [_I] * 6 + [_P], _I) for t in TYPE_SUFFIX.values()},
-        # T, C, left, right, x, nl, u, B, R, S, D, k, span, disjoint, static_tile, stream
-        **{f"ltsp_near_fold_{t}": ([_P] * 7 + [_I] * 8 + [_P], _I) for t in TYPE_SUFFIX.values()},
-        # T, C, left, right, x, nl, u, B, R, S, span, disjoint, static_tile, n_far,
+        # T, C, right, nl, u, B, R, S, D, span, disjoint, packed, stream
+        **{f"ltsp_far_fold_{t}": ([_P] * 5 + [_I] * 7 + [_P], _I) for t in TYPE_SUFFIX.values()},
+        # T, C, left, right, x, nl, u, B, R, S, D, k, span, disjoint, static_tile, packed,
+        # stream
+        **{f"ltsp_near_fold_{t}": ([_P] * 7 + [_I] * 9 + [_P], _I) for t in TYPE_SUFFIX.values()},
+        # T, C, left, right, x, nl, u, B, R, S, span, disjoint, static_tile, packed, n_far,
         # n_near, stream
-        **{f"ltsp_tiled_tables_{t}": ([_P] * 7 + [_I] * 6 + [_IP, _IP, _P], _I)
+        **{f"ltsp_tiled_tables_{t}": ([_P] * 7 + [_I] * 7 + [_IP, _IP, _P], _I)
            for t in TYPE_SUFFIX.values()},
     },
     "ltsp_traceback": {
-        # C, x, dets, counts, stack, B, R, S, stream
-        "ltsp_traceback": ([_P] * 5 + [_I] * 3 + [_P], _I),
+        # C, x, dets, counts, stack, B, R, S, packed, stream
+        "ltsp_traceback": ([_P] * 5 + [_I] * 4 + [_P], _I),
     },
     # a latency probe for the traceback's bound, launched by chip_smoke.py only
     "pointer_chase": {

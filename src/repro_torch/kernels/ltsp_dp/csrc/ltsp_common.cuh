@@ -1,9 +1,10 @@
-// Shared pieces of the LTSP DP table kernels (ltsp_tiled.cu):
-// exact arithmetic per table type, the skip term, one detour candidate, and
-// the reference's sentinel rule.
+// Shared pieces of the LTSP DP table kernels (ltsp_tiled.cu) and the
+// traceback (ltsp_traceback.cu): the two table layouts, exact arithmetic per
+// table type, the skip term, one detour candidate, and the reference's
+// sentinel rule.
 //
 // Exactness: every table value is an integer below the numeric guard of the
-// caller, but the dense table also holds cells that no solve reads (clamped
+// caller, but a table also holds cells that no solve reads (clamped
 // gathers at large s), so the arithmetic is pinned anyway.  int32 adds and
 // multiplies go through uint32, so they wrap exactly like the reference's
 // int32 arrays.  Float adds and multiplies use the _rn intrinsics, which
@@ -22,6 +23,38 @@
 #include <cuda_runtime.h>
 
 namespace ltsp {
+
+// Table layouts.  One instance's plane is a run of rows of S lanes, a row
+// per window (a, b), a <= b:
+//   dense  [R, R, S]:        (a, b) at row a R + b; rows a > b unused;
+//   packed [R (R + 1) / 2, S]: the windows a <= b alone, (a, b) at row
+//                            a R - a (a - 1) / 2 + (b - a).
+// In both, the windows of one start a are consecutive rows, so (a, b) lies
+// at row_base(a) + b, and going down column b from (c, b) to (c + 1, b)
+// moves col_step(c) rows.  Rows are counted in int, which holds R R while
+// R <= kMaxR (the launchers refuse more); an offset, a row times S, is
+// int64: a packed plane at R 714, S 20,864 holds 5.3e9 cells.
+constexpr int kMaxR = 46340;
+
+template <bool kPacked>
+__host__ __device__ __forceinline__ int plane_rows(int R) {
+  return kPacked ? R * (R + 1) / 2 : R * R;
+}
+
+template <bool kPacked>
+__host__ __device__ __forceinline__ int row_base(int a, int R) {
+  return kPacked ? a * R - ((a * (a + 1)) >> 1) : a * R;
+}
+
+template <bool kPacked>
+__host__ __device__ __forceinline__ int cell_row(int a, int b, int R) {
+  return row_base<kPacked>(a, R) + b;
+}
+
+template <bool kPacked>
+__host__ __device__ __forceinline__ int col_step(int c, int R) {
+  return kPacked ? R - c - 1 : R;
+}
 
 template <typename V>
 struct Arith;
@@ -63,7 +96,8 @@ struct Arith<double> {
 
 // "skip b" for cell (a, b) at lane s:
 //   T[a, b-1, clip(s + x_b, 0, S-1)] + 2(r_b - r_{b-1})(s + nl_a) + 2(l_b - r_{b-1}) x_b.
-// `row` is T[i, a, :, :], `lf`/`rt`/`xs` the instance's left, right and x.
+// `row` is the row_base of window start a (cell (a, b') at row + b' rowS, in
+// either layout), `lf`/`rt`/`xs` the instance's left, right and x.
 template <typename V>
 __device__ __forceinline__ V skip_value(const V* row, int64_t rowS, const V* lf, const V* rt,
                                         const int32_t* xs, int b, int s, int S, V s_nl_a) {

@@ -17,6 +17,15 @@
 //   smallest minimising c.
 // The arithmetic and the reference's sentinel rule live in ltsp_common.cuh.
 //
+// Layouts.  Every kernel reads and writes windows a <= b only, so each takes
+// its layout as a template parameter (ltsp_common.cuh): dense planes
+// [B, R, R, S], which the whole-plane paths copy to the host, or packed
+// planes [B, R(R+1)/2, S], the windows a <= b alone, which the solver's
+// uncaptured builds use: half the bytes, and the room for the paper's widest
+// tapes (R 712, S 20,864: 63.6 GB packed, 127 GB dense).  The same cells
+// are computed in the same order either way, so the two layouts agree bit
+// for bit on every window a <= b.
+//
 // Why tiles.  Filled one anti-diagonal per launch (the JAX package's
 // schedule), the DP reads both candidate operands of every (cell, c, s) from
 // device memory: 2 * 8 * S * (R^3 - R) / 6 bytes, ~367 GB per (256, 8192)
@@ -38,7 +47,7 @@
 //      registers: a thread holds 4 x 4 cells of one lane, so each value
 //      loaded from device memory serves TB cells and each value loaded from
 //      shared memory 4.
-//      The partial (value, c) goes to T[a, b, :] and C[a, b, :] in place;
+//      The partial (value, c) goes to cell (a, b) of T and C in place;
 //      nothing reads those cells before their own near launch.
 //   2. near_fold_kernel, one launch per cell diagonal k inside the tiles
 //      (b - a = D TB + k), over every tile of D: a thread per (cell, s)
@@ -54,12 +63,12 @@
 //
 // Bound on this card (NVIDIA H100 SXM data sheet): ~7 operations per
 // candidate, (R^3 - R)/6 * S candidates, 2.3e10 at (256, 8192), ~4.7 ms at
-// 34 TFLOP/s FP64; writing T and C once is ~2 ms at 3.35 TB/s.  The far fold
-// moves 2 * 8 / TB bytes per f64 candidate (2 bytes at TB = 8, ~3.5
-// operations per byte, below the FP64 ridge of ~10, so bytes bound it); the
-// near fold reads its ~3 TB / R share of the candidates (9% at TB = 8,
-// R = 256) straight from device memory, 16 bytes each.  Measured times are in
-// PERF.md.
+// 34 TFLOP/s FP64; writing T and C once is ~2 ms at 3.35 TB/s dense, ~1 ms
+// packed.  The far fold moves 2 * 8 / TB bytes per f64 candidate (2 bytes at
+// TB = 8, ~3.5 operations per byte, below the FP64 ridge of ~10, so bytes
+// bound it); the near fold reads its ~3 TB / R share of the candidates (9%
+// at TB = 8, R = 256) straight from device memory, 16 bytes each.  Measured
+// times are in PERF.md.
 //
 // The host loop `tables` issues every launch of a table build on one stream.
 
@@ -88,8 +97,8 @@ constexpr int kStages = 2;         // far fold: stages in flight (a ring of buff
 
 template <typename V, int TB>
 struct FarStage {
-  V row[TB][kStageC][kLanes];  // T[i, a, c-1, s0 + lane], a in block A
-  V col[kStageC][TB][kLanes];  // T[i, c, b, s0 + lane], b in block B
+  V row[TB][kStageC][kLanes];  // cell (a, c-1) of instance i, lane s0 + lane; a in block A
+  V col[kStageC][TB][kLanes];  // cell (c, b), b in block B
   V fac[kStageC][TB];          // 2 (r_b - r_{c-1})
   V nl[kStageC];               // nl_c
 };
@@ -112,7 +121,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // Far fold of tile diagonal D >= 1: block (lane slice, tile A, instance i).
 // kMasked: a LOGDP span or SIMPLEDP disjoint clip is set, so a start may be
 // dead for some cells; otherwise every far start of every cell is live.
-template <typename V, int TB, bool kMasked>
+// kPacked: the layout (ltsp_common.cuh).
+template <typename V, int TB, bool kMasked, bool kPacked>
 __global__ void __launch_bounds__(kFarThreads<TB>, 1)
 far_fold_kernel(V* __restrict__ T, int32_t* __restrict__ C, const V* __restrict__ right,
                 const V* __restrict__ nl, const V* __restrict__ u, int R, int S, int D,
@@ -137,8 +147,9 @@ far_fold_kernel(V* __restrict__ T, int32_t* __restrict__ C, const V* __restrict_
   const int n_stages = (c_last - c_first + kStageC) / kStageC;
 
   const int64_t rowS = static_cast<int64_t>(S);
-  V* Ti = T + static_cast<int64_t>(i) * R * R * rowS;
-  int32_t* Ci = C + static_cast<int64_t>(i) * R * R * rowS;
+  const int64_t plane = static_cast<int64_t>(i) * ltsp::plane_rows<kPacked>(R) * rowS;
+  V* Ti = T + plane;
+  int32_t* Ci = C + plane;
   const V* rt = right + static_cast<int64_t>(i) * R;
   const V* nls = nl + static_cast<int64_t>(i) * R;
   const V two = A::from_int(2);
@@ -156,13 +167,15 @@ far_fold_kernel(V* __restrict__ T, int32_t* __restrict__ C, const V* __restrict_
         const int ii = q / kStageC, cc = q % kStageC;
         const int c = min(c0 + cc, c_last);
         cp_async16(&sm.row[ii][cc][chunk * kPer],
-                   Ti + (static_cast<int64_t>(a0 + ii) * R + (c - 1)) * rowS + s0 + chunk * kPer);
+                   Ti + static_cast<int64_t>(ltsp::cell_row<kPacked>(a0 + ii, c - 1, R)) * rowS +
+                       s0 + chunk * kPer);
       } else {  // q = cc * TB + jj
         const int cc = q / TB, jj = q % TB;
         const int c = min(c0 + cc, c_last);
         const int b = min(b0 + jj, R - 1);
         cp_async16(&sm.col[cc][jj][chunk * kPer],
-                   Ti + (static_cast<int64_t>(c) * R + b) * rowS + s0 + chunk * kPer);
+                   Ti + static_cast<int64_t>(ltsp::cell_row<kPacked>(c, b, R)) * rowS + s0 +
+                       chunk * kPer);
       }
     }
     for (int idx = tid; idx < kStageC * TB; idx += kThreads) {
@@ -253,7 +266,8 @@ far_fold_kernel(V* __restrict__ T, int32_t* __restrict__ C, const V* __restrict_
     for (int mb = 0; mb < kMicro; ++mb) {
       const int b = b0 + mb0 + mb;
       if (b < R) {
-        const int64_t out = (static_cast<int64_t>(a0 + ma0 + ma) * R + b) * rowS + s_off;
+        const int64_t out =
+            static_cast<int64_t>(ltsp::cell_row<kPacked>(a0 + ma0 + ma, b, R)) * rowS + s_off;
         Ti[out] = best[ma][mb];
         Ci[out] = arg[ma][mb];
       }
@@ -263,7 +277,7 @@ far_fold_kernel(V* __restrict__ T, int32_t* __restrict__ C, const V* __restrict_
 
 // Near fold, merge and skip of the cells of tile diagonal D on cell diagonal
 // k inside their tiles: block (lane block, (tile A, row ii), instance i).
-template <typename V, int TB>
+template <typename V, int TB, bool kPacked>
 __global__ void __launch_bounds__(kNearThreads)
 near_fold_kernel(V* __restrict__ T, int32_t* __restrict__ C, const V* __restrict__ left,
                  const V* __restrict__ right, const int32_t* __restrict__ x,
@@ -291,10 +305,11 @@ near_fold_kernel(V* __restrict__ T, int32_t* __restrict__ C, const V* __restrict
   const V two_u = A::mul(two, u[i]);
 
   const int64_t rowS = static_cast<int64_t>(S);
-  const int64_t plane = (static_cast<int64_t>(i) * R + a) * R * rowS;
-  V* row = T + plane;
-  const V* col = T + (static_cast<int64_t>(i) * R * R + b) * rowS;
-  const int64_t col_step = static_cast<int64_t>(R) * rowS;
+  const int64_t plane = static_cast<int64_t>(i) * ltsp::plane_rows<kPacked>(R) * rowS;
+  const int64_t a_off = plane + static_cast<int64_t>(ltsp::row_base<kPacked>(a, R)) * rowS;
+  V* row = T + a_off;  // cell (a, b') at row[b' rowS]
+  int32_t* c_row = C + a_off;
+  const V* Ti = T + plane;
   const int64_t out = static_cast<int64_t>(b) * rowS + s;
 
   const V skip = ltsp::skip_value(row, rowS, lf, rt, xs, b, s, S, s_nl_a);
@@ -302,42 +317,58 @@ near_fold_kernel(V* __restrict__ T, int32_t* __restrict__ C, const V* __restrict
   const int c_lo = ltsp::window_start(a, b, span, disjoint);
   V best = A::big();
   int arg = -1;
-  auto fold = [&](int c) {
-    const V cand = ltsp::detour_value(row[static_cast<int64_t>(c - 1) * rowS + s],
-                                      col[static_cast<int64_t>(c) * col_step + s],
-                                      A::mul(two, A::sub(r_b, rt[c - 1])), s_nl_a,
-                                      A::mul(two_u, A::add(sv, nls[c])));
-    if (arg < 0 || cand < best) {
-      best = cand;
-      arg = c;
+  // Fold the starts c_from .. c_to in ascending order: (a, c-1) walks along
+  // row a, (c, b) down column b.
+  auto fold = [&](int c_from, int c_to) {
+    if (c_from > c_to) return;
+    int64_t left_off = static_cast<int64_t>(c_from - 1) * rowS + s;
+    int64_t col_off = static_cast<int64_t>(ltsp::cell_row<kPacked>(c_from, b, R)) * rowS + s;
+    int64_t col_step = static_cast<int64_t>(ltsp::col_step<kPacked>(c_from, R)) * rowS;
+    for (int c = c_from; c <= c_to; ++c) {
+      const V cand = ltsp::detour_value(row[left_off], Ti[col_off],
+                                        A::mul(two, A::sub(r_b, rt[c - 1])), s_nl_a,
+                                        A::mul(two_u, A::add(sv, nls[c])));
+      if (arg < 0 || cand < best) {
+        best = cand;
+        arg = c;
+      }
+      left_off += rowS;
+      col_off += col_step;
+      if (kPacked) col_step -= rowS;
     }
   };
-  const int low_hi = min(b, (tile + 1) * TB - 1);
-  for (int c = c_lo; c <= low_hi; ++c) fold(c);
+  fold(c_lo, min(b, (tile + 1) * TB - 1));
   if (D > 0) {
-    const int far_arg = C[plane + out];
+    const int far_arg = c_row[out];
     const V far_best = row[out];
     if (far_arg >= 0 && (arg < 0 || far_best < best)) {
       best = far_best;
       arg = far_arg;
     }
-    for (int c = max(c_lo, (tile + D) * TB + 1); c <= b; ++c) fold(c);
+    fold(max(c_lo, (tile + D) * TB + 1), b);
   }
-  ltsp::settle(row + out, C + plane + out, skip, best, arg, c_lo, b, R, static_tile);
+  ltsp::settle(row + out, c_row + out, skip, best, arg, c_lo, b, R, static_tile);
 }
 
 int n_tiles_of(int R, int TB) { return (R + TB - 1) / TB; }
 
+template <typename V, bool kMasked>
+auto far_kernel(int packed) {
+  return packed ? far_fold_kernel<V, Tile<V>::value, kMasked, true>
+                : far_fold_kernel<V, Tile<V>::value, kMasked, false>;
+}
+
 template <typename V>
 int far_launch(void* T, void* C, const void* right, const void* nl, const void* u, int B,
-               int R, int S, int D, int span, int disjoint, void* stream) {
+               int R, int S, int D, int span, int disjoint, int packed, void* stream) {
   constexpr int TB = Tile<V>::value;
-  if (B < 1 || R < 2 || S < 1 || S % kLanes != 0 || D < 1 || D >= n_tiles_of(R, TB)) {
+  if (B < 1 || R < 2 || R > ltsp::kMaxR || S < 1 || S % kLanes != 0 || D < 1 ||
+      D >= n_tiles_of(R, TB)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int smem = static_cast<int>(kStages * sizeof(FarStage<V, TB>));
-  auto kernel = (span >= 0 || disjoint) ? far_fold_kernel<V, TB, true>
-                                        : far_fold_kernel<V, TB, false>;
+  auto kernel = (span >= 0 || disjoint) ? far_kernel<V, true>(packed)
+                                        : far_kernel<V, false>(packed);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -351,17 +382,19 @@ int far_launch(void* T, void* C, const void* right, const void* nl, const void* 
 template <typename V>
 int near_launch(void* T, void* C, const void* left, const void* right, const void* x,
                 const void* nl, const void* u, int B, int R, int S, int D, int k, int span,
-                int disjoint, int static_tile, void* stream) {
+                int disjoint, int static_tile, int packed, void* stream) {
   constexpr int TB = Tile<V>::value;
   const int n_tiles = n_tiles_of(R, TB);
   const int d = D * TB + k;
-  if (B < 1 || R < 2 || S < 1 || D < 0 || D >= n_tiles || k <= -TB || k >= TB ||
+  if (B < 1 || R < 2 || R > ltsp::kMaxR || S < 1 || D < 0 || D >= n_tiles || k <= -TB ||
+      k >= TB ||
       (D == 0 && k < 1) || d < 1 || d > R - 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_ii = TB - (k < 0 ? -k : k);
   const dim3 grid((S + kNearThreads - 1) / kNearThreads, (n_tiles - D) * n_ii, B);
-  near_fold_kernel<V, TB><<<grid, kNearThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = packed ? near_fold_kernel<V, TB, true> : near_fold_kernel<V, TB, false>;
+  kernel<<<grid, kNearThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<V*>(T), static_cast<int32_t*>(C), static_cast<const V*>(left),
       static_cast<const V*>(right), static_cast<const int32_t*>(x), static_cast<const V*>(nl),
       static_cast<const V*>(u), R, S, D, k, span, disjoint, static_tile);
@@ -372,14 +405,15 @@ int near_launch(void* T, void* C, const void* left, const void* right, const voi
 template <typename V>
 int tables(void* T, void* C, const void* left, const void* right, const void* x,
            const void* nl, const void* u, int B, int R, int S, int span, int disjoint,
-           int static_tile, int* n_far, int* n_near, void* stream) {
+           int static_tile, int packed, int* n_far, int* n_near, void* stream) {
   constexpr int TB = Tile<V>::value;
   *n_far = 0;
   *n_near = 0;
   const int n_tiles = n_tiles_of(R, TB);
   for (int D = 0; D < n_tiles; ++D) {
     if (D > 0) {
-      const int err = far_launch<V>(T, C, right, nl, u, B, R, S, D, span, disjoint, stream);
+      const int err =
+          far_launch<V>(T, C, right, nl, u, B, R, S, D, span, disjoint, packed, stream);
       if (err != 0) return err;
       ++*n_far;
     }
@@ -387,7 +421,7 @@ int tables(void* T, void* C, const void* left, const void* right, const void* x,
       const int d = D * TB + k;
       if (d < 1 || d > R - 1) continue;
       const int err = near_launch<V>(T, C, left, right, x, nl, u, B, R, S, D, k, span,
-                                     disjoint, static_tile, stream);
+                                     disjoint, static_tile, packed, stream);
       if (err != 0) return err;
       ++*n_near;
     }
@@ -402,28 +436,30 @@ int tables(void* T, void* C, const void* left, const void* right, const void* x,
 // synchronises: ltsp_far_fold_* and ltsp_near_fold_* issue one launch,
 // ltsp_tiled_tables_* a whole table build (counting its launches of each
 // kernel into *n_far and *n_near), ltsp_tile_size_* gives the tile size.
+// `packed` picks the layout of T and C (0 dense, 1 packed).
 #define LTSP_TILED_ENTRY_POINTS(SUFFIX, V)                                                   \
   extern "C" int ltsp_tile_size_##SUFFIX() { return Tile<V>::value; }                       \
   extern "C" int ltsp_far_fold_##SUFFIX(void* T, void* C, const void* right, const void* nl, \
                                         const void* u, int B, int R, int S, int D, int span, \
-                                        int disjoint, void* stream) {                        \
-    return far_launch<V>(T, C, right, nl, u, B, R, S, D, span, disjoint, stream);           \
+                                        int disjoint, int packed, void* stream) {            \
+    return far_launch<V>(T, C, right, nl, u, B, R, S, D, span, disjoint, packed, stream);   \
   }                                                                                          \
   extern "C" int ltsp_near_fold_##SUFFIX(void* T, void* C, const void* left,                \
                                          const void* right, const void* x, const void* nl,  \
                                          const void* u, int B, int R, int S, int D, int k,  \
                                          int span, int disjoint, int static_tile,           \
-                                         void* stream) {                                     \
+                                         int packed, void* stream) {                         \
     return near_launch<V>(T, C, left, right, x, nl, u, B, R, S, D, k, span, disjoint,       \
-                          static_tile, stream);                                              \
+                          static_tile, packed, stream);                                      \
   }                                                                                          \
   extern "C" int ltsp_tiled_tables_##SUFFIX(void* T, void* C, const void* left,             \
                                             const void* right, const void* x,               \
                                             const void* nl, const void* u, int B, int R,    \
                                             int S, int span, int disjoint, int static_tile, \
-                                            int* n_far, int* n_near, void* stream) {        \
+                                            int packed, int* n_far, int* n_near,            \
+                                            void* stream) {                                  \
     return tables<V>(T, C, left, right, x, nl, u, B, R, S, span, disjoint, static_tile,     \
-                     n_far, n_near, stream);                                                 \
+                     packed, n_far, n_near, stream);                                         \
   }
 
 LTSP_TILED_ENTRY_POINTS(i32, int32_t)

@@ -1,11 +1,18 @@
 """The LTSP DP tables and traceback on an NVIDIA card: launch wrappers and
 table driver.
 
-The exact DP fills a dense table ``T[B, R, R, S]`` (instance, window start
-``a``, window end ``b``, skip count ``s``) together with the argmin plane
-``C`` (-1 = "skip b", else the winning detour start ``c``), which a
-traceback replays into a detour list.  The hand-written CUDA kernels in
-``csrc/`` (built and bound by :mod:`.build`) replace the JAX package's
+The exact DP fills a table ``T`` over every window ``a <= b`` (instance,
+window start ``a``, window end ``b``, skip count ``s``) together with the
+argmin plane ``C`` (-1 = "skip b", else the winning detour start ``c``),
+which a traceback replays into a detour list.  Tables come in two layouts,
+told apart by their rank (:mod:`.ref`): dense ``[B, R, R, S]``, whose planes
+the whole-plane paths copy to the host, and packed ``[B, R(R+1)/2, S]``, the
+windows ``a <= b`` alone, which every uncaptured build of the solver
+uses: half the bytes, 63.6 GB rather than 127 GB for the paper's widest tape
+(``R`` 712, ``S`` 20,864), which thus fits on one 80 GB card.  Every kernel
+and plain version takes either and computes the same cells in the same
+order.  The hand-written CUDA kernels in ``csrc/`` (built and bound by
+:mod:`.build`) replace the JAX package's
 Pallas kernel (``wavefront_kernel`` / ``ltsp_dp_wavefront`` /
 ``ltsp_dp_tables`` in ``src/repro/kernels/ltsp_dp/ltsp_dp.py``); each
 source's header states what it computes and what bounds it.
@@ -34,7 +41,15 @@ import functools
 import torch
 
 from . import build
-from .ref import far_fold, fill_tiled, init_tables, near_update, tile_schedule, traceback_ref
+from .ref import (
+    far_fold,
+    fill_tiled,
+    init_tables,
+    near_update,
+    packed_rows,
+    tile_schedule,
+    traceback_ref,
+)
 
 __all__ = [
     "DEFAULT_CAND_TILE", "TILE", "FAR_LANES", "LAUNCHES", "reset_launches", "ltsp_far_fold",
@@ -75,14 +90,25 @@ def _type_name(dtype: torch.dtype) -> str:
     return name
 
 
-def _check_tables(T, C, left, right, x, nl, u) -> tuple[str, int, int, int]:
-    """Validate the table workspace and inputs: ``(type name, B, R, S)``."""
-    if T.dim() != 4:
-        raise ValueError(f"T must be [B, R, R, S], got shape {tuple(T.shape)}")
-    B, R, R2, S = T.shape
+def _layout(t: torch.Tensor, R: int, label: str) -> tuple[int, int, bool]:
+    """``(B, S, packed)`` of a table ``t`` over ``R`` files: dense
+    ``[B, R, R, S]`` or packed ``[B, R(R+1)/2, S]``."""
+    if t.dim() == 4 and tuple(t.shape[1:3]) == (R, R):
+        return t.shape[0], t.shape[3], False
+    if t.dim() == 3 and t.shape[1] == packed_rows(R):
+        return t.shape[0], t.shape[2], True
+    raise ValueError(f"{label} must be [B, R, R, S] or [B, R(R+1)/2, S] with R={R} from the "
+                     f"inputs, got shape {tuple(t.shape)}")
+
+
+def _check_tables(T, C, left, right, x, nl, u) -> tuple[str, int, int, int, bool]:
+    """Validate the table workspace and inputs: ``(type name, B, R, S,
+    packed)``; ``R`` is the inputs' file count."""
+    R = left.shape[-1]
+    B, S, packed = _layout(T, R, "T")
     name = _type_name(T.dtype)
-    if R2 != R or tuple(C.shape) != tuple(T.shape) or C.dtype != torch.int32:
-        raise ValueError("C must be an int32 tensor of T's shape [B, R, R, S]")
+    if tuple(C.shape) != tuple(T.shape) or C.dtype != torch.int32:
+        raise ValueError("C must be an int32 tensor of T's shape")
     for label, t, dtype, shape in (
         ("left", left, T.dtype, (B, R)), ("right", right, T.dtype, (B, R)),
         ("x", x, torch.int32, (B, R)), ("nl", nl, T.dtype, (B, R)),
@@ -93,7 +119,7 @@ def _check_tables(T, C, left, right, x, nl, u) -> tuple[str, int, int, int]:
                 f"{label} must be {dtype} of shape {shape}, got {t.dtype} {tuple(t.shape)}"
             )
     _check_device(T, C, left, right, x, nl, u)
-    return name, B, R, S
+    return name, B, R, S, packed
 
 
 def _check_device(*tensors) -> None:
@@ -148,13 +174,14 @@ def ltsp_far_fold(T, C, left, right, x, nl, u, D: int, *, span: int | None,
     place (see :func:`.ref.far_fold`): one launch of ``far_fold_kernel`` on
     a CUDA tensor, the plain version on the CPU.
 
-    ``T`` ``[B, R, R, S]`` (table type) and ``C`` (int32, same shape) are
-    updated in place from ``left``, ``right``, ``nl`` ``[B, R]`` (table type),
-    ``x`` ``[B, R]`` (int32) and ``u`` ``[B]`` (table type); ``span`` is the
-    LOGDP clip, ``disjoint`` the SIMPLEDP one.  On a CUDA device ``S`` must
+    ``T`` (table type; dense ``[B, R, R, S]`` or packed ``[B, R(R+1)/2, S]``)
+    and ``C`` (int32, same shape) are updated in place from ``left``,
+    ``right``, ``nl`` ``[B, R]`` (table type), ``x`` ``[B, R]`` (int32) and
+    ``u`` ``[B]`` (table type); ``span`` is the LOGDP clip, ``disjoint`` the
+    SIMPLEDP one.  On a CUDA device ``S`` must
     be a multiple of :data:`FAR_LANES`.
     """
-    name, B, R, S = _check_tables(T, C, left, right, x, nl, u)
+    name, B, R, S, packed = _check_tables(T, C, left, right, x, nl, u)
     if not 1 <= D < -(-R // TILE[name]):
         raise ValueError(f"tile diagonal D={D} out of range for R={R}")
     _check_lanes(T.device, name, R, S)
@@ -164,7 +191,7 @@ def ltsp_far_fold(T, C, left, right, x, nl, u, D: int, *, span: int | None,
         return
     _launch(T.device, "ltsp_tiled", f"ltsp_far_fold_{build.TYPE_SUFFIX[name]}",
             *(t.data_ptr() for t in (T, C, right, nl, u)), B, R, S, D, _span_arg(span),
-            int(bool(disjoint)), shape=f"B={B}, R={R}, S={S}, D={D}")
+            int(bool(disjoint)), int(packed), shape=f"B={B}, R={R}, S={S}, D={D}")
     LAUNCHES["far_fold_kernel"] += 1
 
 
@@ -175,7 +202,7 @@ def ltsp_near_fold(T, C, left, right, x, nl, u, D: int, k: int, *, span: int | N
     ``near_fold_kernel`` on a CUDA tensor, the plain version on the CPU.
     Arguments as for :func:`ltsp_far_fold`; ``cand_tile`` picks the
     reference's scan form (one static tile when ``R - 1 <= cand_tile``)."""
-    name, B, R, S = _check_tables(T, C, left, right, x, nl, u)
+    name, B, R, S, packed = _check_tables(T, C, left, right, x, nl, u)
     if ("near", D, k) not in _schedule(R, TILE[name]):
         raise ValueError(f"(D={D}, k={k}) is no step of the tiled build for R={R}")
     static_tile = R - 1 <= cand_tile
@@ -185,7 +212,7 @@ def ltsp_near_fold(T, C, left, right, x, nl, u, D: int, k: int, *, span: int | N
         return
     _launch(T.device, "ltsp_tiled", f"ltsp_near_fold_{build.TYPE_SUFFIX[name]}",
             *(t.data_ptr() for t in (T, C, left, right, x, nl, u)), B, R, S, D, k,
-            _span_arg(span), int(bool(disjoint)), int(static_tile),
+            _span_arg(span), int(bool(disjoint)), int(static_tile), int(packed),
             shape=f"B={B}, R={R}, S={S}, D={D}, k={k}")
     LAUNCHES["near_fold_kernel"] += 1
 
@@ -207,8 +234,11 @@ def ltsp_dp_tables(
     disjoint: bool = False,
     cand_tile: int = DEFAULT_CAND_TILE,
     device: str | torch.device = "cuda",
+    packed: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full batched DP tables ``(T, C)``, each ``[B, R, R, S]``, on ``device``.
+    """Full batched DP tables ``(T, C)`` on ``device``, each dense
+    ``[B, R, R, S]`` or, with ``packed``, ``[B, R(R+1)/2, S]`` (the windows
+    ``a <= b`` alone, equal bit for bit to the dense tables there).
 
     ``T`` starts as zeros with the base diagonal ``2(r_b - l_b)(s + nl_b)``
     and ``C`` as ``-1``s; then the tiled schedule (:func:`.ref.tile_schedule`
@@ -221,8 +251,8 @@ def ltsp_dp_tables(
     """
     _check_lanes(torch.device(device), _type_name(left.dtype), left.shape[-1], S)
     left, right, x, nl, u = (t.to(device).contiguous() for t in (left, right, x, nl, u))
-    T, C = init_tables(left, right, nl, S)
-    name, B, R, S = _check_tables(T, C, left, right, x, nl, u)
+    T, C = init_tables(left, right, nl, S, packed)
+    name, B, R, S, _ = _check_tables(T, C, left, right, x, nl, u)
     if T.device.type == "cpu":
         fill_tiled(T, C, left, right, x, nl, u, Tb=TILE[name], span=span, disjoint=disjoint,
                    cand_tile=cand_tile)
@@ -231,7 +261,7 @@ def ltsp_dp_tables(
     try:
         _launch(T.device, "ltsp_tiled", f"ltsp_tiled_tables_{build.TYPE_SUFFIX[name]}",
                 *(t.data_ptr() for t in (T, C, left, right, x, nl, u)), B, R, S,
-                _span_arg(span), int(bool(disjoint)), int(R - 1 <= cand_tile),
+                _span_arg(span), int(bool(disjoint)), int(R - 1 <= cand_tile), int(packed),
                 ctypes.byref(n_far), ctypes.byref(n_near), shape=f"B={B}, R={R}, S={S}")
     finally:
         LAUNCHES["far_fold_kernel"] += n_far.value
@@ -240,16 +270,17 @@ def ltsp_dp_tables(
 
 
 def ltsp_traceback(C: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Detours of every instance from its argmin planes ``C[B, R, R, S]``
-    and multiplicities ``x[B, R]``: ``(detours [B, R, 2], counts [B])``, int32
+    """Detours of every instance from its argmin planes ``C`` (dense
+    ``[B, R, R, S]`` or packed ``[B, R(R+1)/2, S]``, ``R`` from ``x``) and
+    multiplicities ``x[B, R]``: ``(detours [B, R, 2], counts [B])``, int32
     on ``C``'s device, in the emission order of ``ops.traceback_detours``
     (see :func:`.ref.traceback_ref`; ``counts[i] = -1`` marks a plane that is
     not a DP's).  A CUDA tensor launches ``traceback_kernel`` on the current
     stream (no synchronisation); a CPU tensor runs the plain walk."""
-    if C.dim() != 4 or C.dtype != torch.int32 or C.shape[1] != C.shape[2]:
-        raise ValueError(f"C must be an int32 tensor [B, R, R, S], got {C.dtype} "
-                         f"{tuple(C.shape)}")
-    B, R, _, S = C.shape
+    if C.dtype != torch.int32:
+        raise ValueError(f"C must be an int32 tensor, got {C.dtype}")
+    R = x.shape[-1]
+    B, S, packed = _layout(C, R, "C")
     if x.dtype != torch.int32 or tuple(x.shape) != (B, R):
         raise ValueError(f"x must be torch.int32 of shape {(B, R)}, got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -260,7 +291,7 @@ def ltsp_traceback(C: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torc
     counts = torch.empty((B,), dtype=torch.int32, device=C.device)
     stack = torch.empty((B, R, 3), dtype=torch.int32, device=C.device)
     _launch(C.device, "ltsp_traceback", "ltsp_traceback",
-            *(t.data_ptr() for t in (C, x, dets, counts, stack)), B, R, S,
+            *(t.data_ptr() for t in (C, x, dets, counts, stack)), B, R, S, int(packed),
             shape=f"B={B}, R={R}, S={S}")
     LAUNCHES["traceback_kernel"] += 1
     return dets, counts

@@ -4,9 +4,10 @@ and a size-bucketed batch planner.
 The device path is a **complete solver**: :func:`ltsp_dp_tables` (the CUDA
 kernels, see :mod:`.ltsp_dp`) returns the value table *and* per-cell argmin
 planes; a traceback replays the argmin planes into the optimal detour list,
-exactly like the Python DP's traceback — on the card
-(:func:`~.ltsp_dp.ltsp_traceback`) on the ``"cuda"`` backend, on the host
-(:func:`traceback_detours`) where whole planes come back anyway.
+exactly like the Python DP's traceback — on the tables' device for an
+uncaptured solve (:func:`~.ltsp_dp.ltsp_traceback` on the ``"cuda"``
+backend, its plain version on ``"torch"``), on the host
+(:func:`traceback_detours`) where captured whole planes come back anyway.
 
 Two backends build the tables: ``"cuda"`` launches the hand-written kernels
 and needs a CUDA ``device``; ``"torch"`` runs the plain version
@@ -39,7 +40,7 @@ Three numeric modes:
 ``disjoint=True`` routes SIMPLEDP through the same kernel: the candidate band
 is clipped to root-level cells (no detour may start inside another), which
 collapses the 3-D table to SIMPLEDP's 2-D recursion — same mechanism as the
-LOGDP ``span`` clip, bit-identical to :func:`repro.core.dp.simpledp_schedule`
+LOGDP ``span`` clip, bit-identical to :func:`repro_torch.core.dp.simpledp_schedule`
 (cost *and* traceback).
 
 Batching and the bucket planner
@@ -74,10 +75,19 @@ bucket shape's scan form (``R - 1 <= cand_tile``), and only int32 and
 captured launches keep the bucket shape.
 ``ltsp_solve_batch([])`` returns ``[]`` and single-instance batches skip the
 planner entirely (one launch at its bucket shape, no grouping pass).
+
+Table layout: every build without ``capture`` (the float64 launches and the
+int32 batches alike, on the ``cuda`` backend and on its plain version, the
+``torch`` backend) stores ``T`` and ``C`` for the windows ``a <= b`` alone,
+packed ``[B, R(R+1)/2, S]`` (see :mod:`.ref`), and walks ``C`` where it was
+built: only the root values and the detours leave the device.  Captured
+builds keep dense ``[B, R, R, S]`` planes, which ``DenseStore`` and the host
+walk read.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import threading
 import time
@@ -89,7 +99,7 @@ from ...core.instance import Instance, virtual_lb
 from ...core.warm import DenseStore, WarmState, WarmStats, align_warm, warm_from_instance
 from ...obs.trace import HOST_SPANS
 from .ltsp_dp import DEFAULT_CAND_TILE, TILE, ltsp_dp_tables, ltsp_traceback
-from .ref import ltsp_dp_tables_ref
+from .ref import ltsp_dp_tables_ref, root_values, traceback_ref
 
 __all__ = [
     "prepare_arrays",
@@ -398,6 +408,14 @@ def _build_timer(device: torch.device):
     return begin, end, stream
 
 
+def _alloc_retries(device: torch.device) -> int | None:
+    """The caching allocator's count of requests it retried after freeing
+    its cached blocks on ``device``; ``None`` off the card."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.memory_stats_as_nested_dict(device)["num_alloc_retries"]
+
+
 def _solve_packed(
     originals: list[Instance],
     scaled: list[Instance],
@@ -416,10 +434,12 @@ def _solve_packed(
     """One padded device table build; results refer to the *original*
     instances.
 
-    On the ``cuda`` backend without ``capture`` the traceback runs on the
-    card (:func:`~.ltsp_dp.ltsp_traceback`) and only the detours and the
-    root values come to the host; otherwise the whole argmin plane does, and
-    :func:`traceback_detours` walks it there.
+    Without ``capture`` the tables are packed (the windows ``a <= b``
+    alone), the traceback runs on their device (on the ``cuda`` backend
+    :func:`~.ltsp_dp.ltsp_traceback`, on the ``torch`` backend its plain
+    version) and only the detours and the root values come to the host;
+    with it the tables are dense, the whole argmin plane comes to the host,
+    and :func:`traceback_detours` walks it there.
 
     ``capture=True`` additionally snapshots each instance's dense value and
     argmin planes into a :class:`~repro_torch.core.warm.DenseStore` (kept in
@@ -430,35 +450,50 @@ def _solve_packed(
     Each stretch sits in a span of the host-clock log
     :data:`~repro_torch.obs.trace.HOST_SPANS` (``ltsp.prepare``,
     ``ltsp.tables``, ``ltsp.wait``, ``ltsp.traceback``, ``ltsp.finish``).
-    Armed on a CUDA device, two CUDA events also time the table build,
-    read inside the wait that follows it (``device_ns`` of ``ltsp.tables``).
+    Armed, ``ltsp.tables`` also carries the tables' ``layout`` (``"packed"``
+    or ``"dense"``) and ``table_bytes`` (``T`` and ``C``); on a CUDA device,
+    ``alloc_retries`` (the caching allocator's retries after a failed
+    request, across the span) and ``device_ns`` (two CUDA events around the
+    build, read inside the wait that follows it).
     """
     with HOST_SPANS.open("ltsp.prepare"):
         left, right, x, nl, u, S = prepare_batch(
             scaled, dtype=dtype, R_pad=R_pad, S_pad=S_pad, B_pad=B_pad, device=device
         )
-    tables = ltsp_dp_tables if backend == "cuda" else ltsp_dp_tables_ref
+    if backend == "cuda":  # the kernels, on the inputs' device
+        tables = functools.partial(ltsp_dp_tables, device=left.device)
+        walk = ltsp_traceback
+    else:
+        tables, walk = ltsp_dp_tables_ref, traceback_ref
+    packed = not capture
     timer = None  # armed on a CUDA device only
     with HOST_SPANS.open("ltsp.tables") as build:
         if build:
             timer = _build_timer(left.device)
+            retries = _alloc_retries(left.device)
         T, C = tables(
             left, right, x, nl, u, S=S, span=span, disjoint=disjoint,
-            cand_tile=cand_tile,
+            cand_tile=cand_tile, packed=packed,
         )
         if timer:
             timer[1].record(timer[2])
+        if build:
+            build.attrs["layout"] = "packed" if packed else "dense"
+            build.attrs["table_bytes"] = T.nbytes + C.nbytes
+            if retries is not None:
+                build.attrs["alloc_retries"] = _alloc_retries(left.device) - retries
     R = left.shape[1]
     with HOST_SPANS.open("ltsp.wait") as sp:
-        T_root = _to_host(T[:, 0, R - 1, 0])
+        T_root = _to_host(root_values(T, R))
         if sp:
             sp.attrs["what"] = "root"
         if timer:  # the copy has waited past the end event: no new sync
             build.attrs["device_ns"] = round(timer[0].elapsed_time(timer[1]) * 1e6)
-    if backend == "cuda" and not capture:
-        # the traceback runs on the card: only the detours come to the host
+    if packed:
+        # the traceback runs on the tables' device: only the detours come to
+        # the host
         with HOST_SPANS.open("ltsp.traceback"):
-            dets_dev, counts_dev = ltsp_traceback(C, x)
+            dets_dev, counts_dev = walk(C, x)
         del T, C  # free this bucket's device tables before the next one
         with HOST_SPANS.open("ltsp.wait") as sp:
             dets_all, counts = _to_host(dets_dev), _to_host(counts_dev)
@@ -471,8 +506,7 @@ def _solve_packed(
         # whole planes go to the host: DenseStore needs them, and the
         # host walk replays C
         with HOST_SPANS.open("ltsp.wait") as sp:
-            C_host = _to_host(C)
-            T_host = _to_host(T) if capture else None
+            C_host, T_host = _to_host(C), _to_host(T)
             del T, C  # free this bucket's device tables before the next one
             x_host = _to_host(x)
             if sp:
@@ -689,9 +723,9 @@ def ltsp_solve_batch_warm(
 ]:
     """Warm-startable batch solve, bit-identical to :func:`ltsp_solve_batch`.
 
-    Instances whose :class:`~repro.core.warm.WarmState` aligns (same U-turn
+    Instances whose :class:`~repro_torch.core.warm.WarmState` aligns (same U-turn
     penalty and span, at least one matching file run — see
-    :func:`repro.core.warm.align_warm`) re-evaluate **only the invalidated
+    :func:`repro_torch.core.warm.align_warm`) re-evaluate **only the invalidated
     cells on the host**, in exact python ints, reading every still-valid cell
     out of the warm store: a device relaunch would recompute the whole dense
     table, which is precisely the work warm-starting exists to avoid, and
@@ -700,7 +734,7 @@ def ltsp_solve_batch_warm(
     tests, and warm-vs-cold identity is asserted differentially on top).
     Everything else takes the normal bucketed device launches with
     ``capture=True``, so each cold solve yields a dense
-    :class:`~repro.core.warm.DenseStore` warm state for the next tick.
+    :class:`~repro_torch.core.warm.DenseStore` warm state for the next tick.
 
     The numeric-policy magnitude guards run for *every* instance first —
     including warm-aligned ones, which the guards' failure modes could

@@ -1,13 +1,17 @@
 """Plain eager-torch version of the LTSP DP wavefront (values *and* argmins).
 
 The exact Python DP (:mod:`repro_torch.core.dp`) memoises only reachable
-``(a, b, n_skip)`` cells; the device formulation instead materialises the
-full table ``T[B, R, R, S]`` over every skip count ``s in [0, S)`` and fills
-it one anti-diagonal ``d = b - a`` at a time.  Every recurrence is valid for
-an arbitrary ``s`` parameter, so the dense table contains no garbage: the
-only approximation is the clamped gather ``T[a, b-1, min(s + x_b, S-1)]``,
-which can only be hit from cells that are themselves unreachable from the
-root ``(0, R-1, 0)``.
+``(a, b, n_skip)`` cells; the device formulation instead materialises every
+window ``a <= b`` over every skip count ``s in [0, S)`` and fills them one
+anti-diagonal ``d = b - a`` at a time.  A table comes in one of two layouts,
+told apart by its rank: dense ``T[B, R, R, S]``, whose windows ``a > b`` no
+step reads or writes, or packed ``T[B, R(R+1)/2, S]``, the windows ``a <= b``
+alone, window ``(a, b)`` at row :func:`cell_row` (``a``'s windows
+contiguous).  Every function here takes either and computes the same cells
+in the same order.  Every recurrence is valid for an arbitrary ``s``
+parameter, so the table contains no garbage: the only approximation is the
+clamped gather ``T[a, b-1, min(s + x_b, S-1)]``, which can only be hit from
+cells that are themselves unreachable from the root ``(0, R-1, 0)``.
 
 This module holds the plain versions of the hand-written CUDA kernels in
 ``csrc/``: :func:`far_fold` and :func:`near_update` compute what one launch
@@ -32,6 +36,9 @@ import torch
 __all__ = [
     "INT32_BIG",
     "sentinel",
+    "packed_rows",
+    "cell_row",
+    "root_values",
     "base_diagonal",
     "init_tables",
     "diagonal_update",
@@ -55,6 +62,33 @@ def sentinel(dtype: torch.dtype) -> float | int:
     return INT32_BIG if dtype == torch.int32 else float("inf")
 
 
+def packed_rows(R: int) -> int:
+    """Rows of a packed table over ``R`` files: one per window ``a <= b``."""
+    return R * (R + 1) // 2
+
+
+def cell_row(a, b, R: int):
+    """Row of window ``(a, b)``, ``a <= b``, in a packed table over ``R``
+    files: ``a R - a(a-1)/2 + (b - a)`` (ints or integer tensors)."""
+    return a * R - a * (a - 1) // 2 + (b - a)
+
+
+def _flat(T, R: int):
+    """``(rows, row)``: ``T`` as ``[B, rows, S]`` and the row of window
+    ``(a, b)`` in it, ``a R + b`` for a dense ``[B, R, R, S]`` table and
+    :func:`cell_row` for a packed ``[B, R(R+1)/2, S]`` one."""
+    if T.dim() == 4:
+        return T.view(T.shape[0], R * R, T.shape[-1]), lambda a, b: a * R + b
+    return T, lambda a, b: cell_row(a, b, R)
+
+
+def root_values(T, R: int):
+    """``T[:, 0, R-1, 0]`` of every instance, the root window ``(0, R-1)``
+    at skip count 0, from a table in either layout."""
+    rows, row = _flat(T, R)
+    return rows[:, row(0, R - 1), 0]
+
+
 def base_diagonal(right, left, nl, S: int, dtype=torch.float32):
     """``T[..., b, b, s] = 2 s(b) (s + n_l(b))`` for all b, s (batched or not)."""
     size = (right - left).to(dtype)
@@ -62,14 +96,17 @@ def base_diagonal(right, left, nl, S: int, dtype=torch.float32):
     return 2 * size[..., None] * (svec + nl.to(dtype)[..., None])
 
 
-def init_tables(left, right, nl, S: int):
-    """``(T, C)`` workspace of shape ``[B, R, R, S]``: zeros and ``-1``s, with
-    the base diagonal written into ``T``."""
+def init_tables(left, right, nl, S: int, packed: bool = False):
+    """``(T, C)`` workspace, dense ``[B, R, R, S]`` or ``packed``
+    ``[B, R(R+1)/2, S]``: zeros and ``-1``s, with the base diagonal written
+    into ``T``."""
     B, R = left.shape
-    T = torch.zeros((B, R, R, S), dtype=left.dtype, device=left.device)
-    C = torch.full((B, R, R, S), -1, dtype=torch.int32, device=left.device)
+    shape = (B, packed_rows(R), S) if packed else (B, R, R, S)
+    T = torch.zeros(shape, dtype=left.dtype, device=left.device)
+    C = torch.full(shape, -1, dtype=torch.int32, device=left.device)
+    rows, row = _flat(T, R)
     rr = torch.arange(R, device=left.device)
-    T[:, rr, rr, :] = base_diagonal(right, left, nl, S, left.dtype)
+    rows[:, row(rr, rr), :] = base_diagonal(right, left, nl, S, left.dtype)
     return T, C
 
 
@@ -93,6 +130,7 @@ def _folder(T, right, nl, u, a, b):
     always taken.  ``live`` masks the starts (``None``: all live); ``c`` must
     lie in ``[a + 1, b]`` everywhere."""
     dtype, S = T.dtype, T.shape[-1]
+    rows, row = _flat(T, right.shape[1])
     svec = torch.arange(S, dtype=dtype, device=T.device)
     s_nl_a = svec + nl[:, a, None]
     r_b = right[:, b]
@@ -100,7 +138,7 @@ def _folder(T, right, nl, u, a, b):
 
     def fold(c, live, best, arg):
         cand = (
-            (T[:, a, c - 1, :] + T[:, c, b, :])
+            (rows[:, row(a, c - 1), :] + rows[:, row(c, b), :])
             + (2 * (r_b - right[:, c - 1]))[:, :, None] * s_nl_a
         ) + two_u * (svec + nl[:, c, None])
         better = (arg < 0) | (cand < best)
@@ -122,7 +160,7 @@ def _empty_fold(T, n: int):
 def _settle(T, C, left, right, x, nl, a, b, best, arg, c_lo, static_tile: bool) -> None:
     """Finish cells ``(a, b)`` from their folded detours ``(best, arg)``:
     apply the JAX kernel's sentinel semantics, take the skip term, and write
-    ``T[:, a, b, :]`` and ``C[:, a, b, :]`` in place.
+    cells ``(a, b)`` of ``T`` and ``C`` in place.
 
     ``static_tile`` selects which of the JAX kernel's two scan forms decides
     the cells whose live candidates all reach the sentinel (see
@@ -130,6 +168,8 @@ def _settle(T, C, left, right, x, nl, a, b, best, arg, c_lo, static_tile: bool) 
     """
     R, S = left.shape[1], T.shape[-1]
     dev, dtype = T.device, T.dtype
+    rows, row = _flat(T, R)
+    c_rows, _ = _flat(C, R)
     big = torch.tensor(sentinel(dtype), dtype=dtype, device=dev)
     svec = torch.arange(S, dtype=dtype, device=dev)
     s_nl_a = svec + nl[:, a, None]  # [B, N, S]
@@ -139,7 +179,7 @@ def _settle(T, C, left, right, x, nl, a, b, best, arg, c_lo, static_tile: bool) 
 
     # ---- skip b --------------------------------------------------------
     idx = (torch.arange(S, device=dev) + x_b[:, :, None].long()).clamp(0, S - 1)
-    shifted = T[:, a, b - 1, :].gather(2, idx)
+    shifted = rows[:, row(a, b - 1), :].gather(2, idx)
     skip = (
         shifted
         + (2 * (r_b - r_bm1))[:, :, None] * s_nl_a
@@ -169,15 +209,15 @@ def _settle(T, C, left, right, x, nl, a, b, best, arg, c_lo, static_tile: bool) 
         argc = torch.where(keep, arg, torch.zeros_like(arg))
 
     take_skip = skip <= det
-    T[:, a, b, :] = torch.where(take_skip, skip, det)
-    C[:, a, b, :] = torch.where(take_skip, torch.full_like(argc, -1), argc)
+    rows[:, row(a, b), :] = torch.where(take_skip, skip, det)
+    c_rows[:, row(a, b), :] = torch.where(take_skip, torch.full_like(argc, -1), argc)
 
 
 def diagonal_update(
     T, C, left, right, x, nl, u, d: int, *,
     S: int, span: int | None, disjoint: bool, static_tile: bool,
 ) -> None:
-    """Write ``T[:, a, a+d, :]`` and ``C[:, a, a+d, :]`` for every window
+    """Write cells ``(a, a+d)`` of ``T`` and ``C`` for every window
     start ``a`` in place, reading only diagonals ``< d``: one step of the
     JAX package's per-diagonal schedule.  Detour starts fold in ascending
     ``c``."""
@@ -234,9 +274,9 @@ def far_fold(T, C, left, right, x, nl, u, D: int, *, Tb: int, span: int | None,
              disjoint: bool) -> None:
     """Far partials of tile diagonal ``D >= 1``, in place: for every cell
     ``(a, b)`` of a tile ``(A, A + D)``, the strict ascending fold over the
-    detour starts ``c`` in ``[(A + 1) Tb, (A + D) Tb]`` goes to
-    ``T[:, a, b, :]`` (the sentinel where no start is live) and its argmin
-    to ``C[:, a, b, :]`` (-1 where none is).  Both operands of these starts
+    detour starts ``c`` in ``[(A + 1) Tb, (A + D) Tb]`` goes to cell
+    ``(a, b)`` of ``T`` (the sentinel where no start is live) and its argmin
+    to ``C`` (-1 where none is).  Both operands of these starts
     lie on tile diagonals ``< D``, so every one is final."""
     a, b, A = _tile_cells(left.shape[1], Tb, D, None, T.device)
     c_lo = _window_start(a, b, span, disjoint)
@@ -245,8 +285,10 @@ def far_fold(T, C, left, right, x, nl, u, D: int, *, Tb: int, span: int | None,
     for t in range((D - 1) * Tb + 1):
         c = (A + 1) * Tb + t  # in [a + 1, b]: far starts lie inside every window
         best, arg = fold(c, c >= c_lo, best, arg)
-    T[:, a, b, :] = best
-    C[:, a, b, :] = arg
+    R = left.shape[1]
+    (rows, row), (c_rows, _) = _flat(T, R), _flat(C, R)
+    rows[:, row(a, b), :] = best
+    c_rows[:, row(a, b), :] = arg
 
 
 def near_update(T, C, left, right, x, nl, u, D: int, k: int, *, Tb: int,
@@ -269,7 +311,8 @@ def near_update(T, C, left, right, x, nl, u, D: int, k: int, *, Tb: int,
         live = (c >= c_lo) & (c <= low_hi)
         best, arg = fold(torch.minimum(c, b), live, best, arg)
     if D:
-        far_best, far_arg = T[:, a, b, :], C[:, a, b, :]
+        (rows, row), (c_rows, _) = _flat(T, R), _flat(C, R)
+        far_best, far_arg = rows[:, row(a, b), :], c_rows[:, row(a, b), :]
         take = (far_arg >= 0) & ((arg < 0) | (far_best < best))
         best = torch.where(take, far_best, best)
         arg = torch.where(take, far_arg, arg)
@@ -296,12 +339,12 @@ def fill_tiled(T, C, left, right, x, nl, u, *, Tb: int, span: int | None,
 def ltsp_dp_tables_tiled_ref(
     left, right, x, nl, u, *,
     S: int, Tb: int, span: int | None = None, disjoint: bool = False,
-    cand_tile: int = 128,
+    cand_tile: int = 128, packed: bool = False,
 ):
     """Full batched DP tables ``(T, C)`` built by the plain versions of the
     tiled schedule with tile size ``Tb``; equal, bit for bit, to
-    :func:`ltsp_dp_tables_ref` for every ``Tb >= 1``."""
-    T, C = init_tables(left, right, nl, S)
+    :func:`ltsp_dp_tables_ref` for every ``Tb >= 1``, in either layout."""
+    T, C = init_tables(left, right, nl, S, packed)
     fill_tiled(T, C, left, right, x, nl, u, Tb=Tb, span=span, disjoint=disjoint,
                cand_tile=cand_tile)
     return T, C
@@ -310,12 +353,13 @@ def ltsp_dp_tables_tiled_ref(
 def ltsp_dp_tables_ref(
     left, right, x, nl, u, *,
     S: int, span: int | None = None, disjoint: bool = False,
-    cand_tile: int = 128,
+    cand_tile: int = 128, packed: bool = False,
 ):
-    """Full batched DP tables ``(T, C)``, each ``[B, R, R, S]``, built by the
-    plain version on the inputs' device."""
+    """Full batched DP tables ``(T, C)``, each ``[B, R, R, S]`` (``packed``:
+    ``[B, R(R+1)/2, S]``), built by the plain version on the inputs'
+    device."""
     B, R = left.shape
-    T, C = init_tables(left, right, nl, S)
+    T, C = init_tables(left, right, nl, S, packed)
     for d in range(1, R):
         diagonal_update(
             T, C, left, right, x, nl, u, d, S=S, span=span, disjoint=disjoint,
@@ -325,15 +369,17 @@ def ltsp_dp_tables_ref(
 
 
 def traceback_ref(C, x):
-    """Walk the argmin planes ``C[B, R, R, S]`` of every instance into its
-    detours: ``(detours [B, R, 2], counts [B])``, both int32 on ``C``'s
-    device, row ``n < counts[i]`` of ``detours[i]`` the ``n``-th detour
-    ``(c, b)`` and the rest zeros.  The walk is ``ops.traceback_detours``'s
-    pre-order walk from the root cell ``(0, R-1, 0)`` (``x`` holds the
-    multiplicities ``[B, R]``).  A walk that leaves the plane or meets a
-    choice outside ``(a, b]`` (a plane that is not a DP's) stops there with
+    """Walk the argmin planes ``C`` of every instance (dense
+    ``[B, R, R, S]`` or packed ``[B, R(R+1)/2, S]``) into its detours:
+    ``(detours [B, R, 2], counts [B])``, both int32 on ``C``'s device, row
+    ``n < counts[i]`` of ``detours[i]`` the ``n``-th detour ``(c, b)`` and
+    the rest zeros.  The walk is ``ops.traceback_detours``'s pre-order walk
+    from the root cell ``(0, R-1, 0)`` (``x`` holds the multiplicities
+    ``[B, R]``).  A walk that leaves the plane or meets a choice outside
+    ``(a, b]`` (a plane that is not a DP's) stops there with
     ``counts[i] = -1``."""
-    B, R, _, S = C.shape
+    B, R, S = C.shape[0], x.shape[1], C.shape[-1]
+    rows, row = _flat(C, R)
     dets = torch.zeros((B, R, 2), dtype=torch.int32)
     counts = torch.zeros((B,), dtype=torch.int32)
     for i in range(B):
@@ -342,7 +388,7 @@ def traceback_ref(C, x):
         while work and n >= 0:
             a, b, s = work.pop()
             while a < b:
-                c = int(C[i, a, b, s]) if s < S else None
+                c = int(rows[i, row(a, b), s]) if s < S else None
                 if c == -1:
                     s += int(x[i, b])
                     b -= 1

@@ -87,8 +87,9 @@ def test_a_profiled_solve_records_one_root_and_its_children(entry):
     assert root.attrs["n_req"] == (n_req if batch else n_req[0])
     assert root.attrs["n"] == ([i.n for i in insts] if batch else insts[0].n)
     assert root.attrs["backend"] == "torch" and root.attrs["policy"] in ("dp", "logdp1")
-    # five copies to the device a table build, the root value and (the plain
-    # version's planes) C and x back, and T too where the warm entries capture
+    # five copies to the device a table build, the root value and the
+    # detours and their counts back; where the warm entries capture, the
+    # whole planes C and T and x instead of the detours
     builds = len([s for s in tree if s.name == "ltsp.tables"])
     per_build = 9 if entry.endswith("warm") else 8
     assert sum(s.attrs.get("copies", 0) for s in tree) == per_build * builds
@@ -172,6 +173,35 @@ def test_an_armed_capture_solve_records_planes_and_stores():
     assert finish.attrs["store_bytes"] == plane_bytes
     assert res == ops.ltsp_solve_batch([INSTS[0]], backend="torch", device="cpu",
                                        numeric_policy="f64")[0]
+
+
+@pytest.mark.parametrize("backend, capture, layout", [
+    ("torch", False, "packed"), ("cuda", False, "packed"), ("torch", True, "dense")])
+def test_an_armed_build_records_its_layout_and_bytes(backend, capture, layout):
+    """``ltsp.tables`` carries the tables' layout and bytes when armed: the
+    packed ones of an uncaptured build (on the ``cuda`` backend here its
+    plain version, on the CPU) and the dense planes of a captured one; no
+    allocator count off the card.  Unarmed, nothing is recorded."""
+    inst = INSTS[0]
+    scaled, g = ops.rescale_instance(inst)
+    R, S = ops.tight_shape(scaled)
+
+    def build():
+        out, _ = ops._solve_packed([inst], [scaled], [g], R, S, None, None, backend,
+                                   ops.DEFAULT_CAND_TILE, dtype=torch.float64,
+                                   capture=capture, device="cpu")
+        return out
+
+    log = fresh_spans()
+    bare = build()
+    assert len(log.spans) == 0
+    with log.recording():
+        assert build() == bare
+    [tables] = [s for s in log.spans if s.name == "ltsp.tables"]
+    cells = R * (R + 1) // 2 * S if layout == "packed" else R * R * S
+    assert tables.attrs["layout"] == layout
+    assert tables.attrs["table_bytes"] == cells * (8 + 4)
+    assert "alloc_retries" not in tables.attrs and "device_ns" not in tables.attrs
 
 
 def test_the_bounded_log_counts_what_it_drops():
@@ -268,3 +298,18 @@ def test_cuda_armed_solve_times_the_build(cuda_device, policy):
         assert 0 < tables.attrs["device_ns"] <= spans["root"].t1 - tables.t0
         assert "device_ns" not in spans["ltsp.traceback"].attrs
         assert sum(s.attrs.get("copies", 0) for s in log.spans) == 8
+
+
+@pytest.mark.cuda
+def test_cuda_armed_solve_records_a_packed_build_and_the_allocators_retries(cuda_device):
+    ctx = ExecutionContext(backend="cuda", device=cuda_device, numeric_policy="f64")
+    inst = instance(4, 40)
+    bare = solve(inst, "dp", context=ctx)
+    log = fresh_spans()
+    with log.recording():
+        assert solve(inst, "dp", context=ctx) == bare
+    [tables] = [s for s in log.spans if s.name == "ltsp.tables"]
+    R, S = ops.bucket_shape(inst)  # an int32 build: its coordinates fit
+    assert tables.attrs["layout"] == "packed"
+    assert tables.attrs["table_bytes"] == R * (R + 1) // 2 * S * (4 + 4)
+    assert tables.attrs["alloc_retries"] == 0

@@ -121,7 +121,7 @@ def main() -> int:
         def run(v, T, C):
             err = libs[v].ltsp_tiled_tables_f64(
                 *(t.data_ptr() for t in (T, C, *arrays)), 1, shape[0], S, -1, 0,
-                int(shape[0] - 1 <= ltsp_dp.DEFAULT_CAND_TILE), ctypes.byref(n_far),
+                int(shape[0] - 1 <= ltsp_dp.DEFAULT_CAND_TILE), 0, ctypes.byref(n_far),
                 ctypes.byref(n_near), stream)
             if err != 0:
                 raise SystemExit(f"tiled_sweep: variant {v} launch failed: cudaError {err}")
