@@ -3027,6 +3027,31 @@ def main() -> int:
         else:
             log(f"phase 1b: paper tape {idx} ({R_pad}, {S}) f64 span={span}: packed, bit-equal")
         del Tk, Ck
+    # LogDP(1) on the widest narrow tape: the far fold stages only the starts
+    # each block's span leaves live (ltsp_tiled.cu, schedule step 1)
+    idx = max((i for i, inst in enumerate(paper) if bucket_shape(inst)[0] <= DENSE_R_MAX),
+              key=lambda i: paper[i].n_req)
+    arrays, S = tape_arrays(idx)
+    R_pad = arrays[0].shape[1]
+    span = logdp_span(paper[idx].n_req, 1.0)
+    kw = dict(S=S, span=span, disjoint=False, cand_tile=ltsp_dp.DEFAULT_CAND_TILE, packed=True)
+    stages = dict(ltsp_dp.FAR_STAGES)
+    Tk, Ck = ltsp_dp.ltsp_dp_tables(*arrays, device=dev, **kw)
+    staged, full = (ltsp_dp.FAR_STAGES[k] - stages[k] for k in ("staged", "full"))
+    Tp, Cp = ltsp_dp_tables_ref(*arrays, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(Tk, Tp) and torch.equal(Ck, Cp)):
+        raise SystemExit(f"phase 1 FAILED: paper tape {idx} LogDP(1) tiled build != plain")
+    del Tp, Cp
+    n_tiles = -(-R_pad // ltsp_dp.TILE["float64"])
+    far_ms = events_ms(lambda: [ltsp_dp.ltsp_far_fold(Tk, Ck, *arrays, D, span=span)
+                                for D in range(1, n_tiles)], reps=3)
+    del Tk, Ck
+    build_ms = events_ms(lambda: ltsp_dp.ltsp_dp_tables(*arrays, device=dev, **kw), reps=3)
+    log(f"phase 1b: widest narrow tape {idx} (n_req {paper[idx].n_req}, ({R_pad}, {S})) f64 "
+        f"LogDP(1), span {span}: packed tiled build {build_ms:.3f} ms, far launches alone "
+        f"{far_ms:.3f} ms; the far fold staged {staged} of {full} block-stages "
+        f"({staged / full:.4f}); bit-equal to the per-diagonal plain version")
     torch.cuda.empty_cache()
     phases["1 kernels vs plain"] = time.perf_counter() - t0
     log(f"phase 1: all bit-equal, max_abs_err {max_err}, {phases['1 kernels vs plain']:.3f} s")

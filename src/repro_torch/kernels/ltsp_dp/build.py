@@ -37,6 +37,7 @@ TYPE_SUFFIX = {"int32": "i32", "float32": "f32", "float64": "f64"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
+_LP = ctypes.POINTER(ctypes.c_longlong)
 #: source name -> {C entry point: (argument types, result type)}
 SOURCES: dict[str, dict[str, tuple[list, type]]] = {
     "ltsp_tiled": {
@@ -47,8 +48,8 @@ SOURCES: dict[str, dict[str, tuple[list, type]]] = {
         # stream
         **{f"ltsp_near_fold_{t}": ([_P] * 7 + [_I] * 9 + [_P], _I) for t in TYPE_SUFFIX.values()},
         # T, C, left, right, x, nl, u, B, R, S, span, disjoint, static_tile, packed, n_far,
-        # n_near, stream
-        **{f"ltsp_tiled_tables_{t}": ([_P] * 7 + [_I] * 7 + [_IP, _IP, _P], _I)
+        # n_near, n_far_stages, n_far_stages_full, stream
+        **{f"ltsp_tiled_tables_{t}": ([_P] * 7 + [_I] * 7 + [_IP, _IP, _LP, _LP, _P], _I)
            for t in TYPE_SUFFIX.values()},
     },
     "ltsp_traceback": {

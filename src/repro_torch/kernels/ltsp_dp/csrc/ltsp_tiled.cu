@@ -46,9 +46,13 @@
 //      stages of kStageC starts), and folds every cell's far starts in
 //      registers: a thread holds 4 x 4 cells of one lane, so each value
 //      loaded from device memory serves TB cells and each value loaded from
-//      shared memory 4.
-//      The partial (value, c) goes to cell (a, b) of T and C in place;
-//      nothing reads those cells before their own near launch.
+//      shared memory 4.  Under LOGDP the stages begin at the block's lowest
+//      live start, b0 - span (every cell of the block has b >= b0), so a
+//      span below kStageC stages once a block, not D times; the starts
+//      skipped are dead for every cell of the block.
+//      The partial (value, c) goes to cell (a, b) of T and C in place, the
+//      sentinel and -1 where no start is live; nothing reads those cells
+//      before their own near launch.
 //   2. near_fold_kernel, one launch per cell diagonal k inside the tiles
 //      (b - a = D TB + k), over every tile of D: a thread per (cell, s)
 //      folds the near starts below the far range, merges the far partial,
@@ -106,6 +110,18 @@ struct FarStage {
 template <int TB>
 constexpr int kFarThreads = (TB / kMicro) * (TB / kMicro) * kLanes;
 
+// The first far start a block stages, of the far starts [c_first, c_last =
+// b0]: c_first, raised under LOGDP (span >= 0) to b0 - span, below which no
+// start is live for any window end b >= b0 of the block.
+__host__ __device__ constexpr int far_c_start(int c_first, int b0, int span) {
+  return span >= 0 && b0 - span > c_first ? b0 - span : c_first;
+}
+
+// Stages of kStageC starts that cover the far starts [c_start, c_last].
+__host__ __device__ constexpr int far_stages(int c_start, int c_last) {
+  return (c_last - c_start + kStageC) / kStageC;
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
@@ -144,7 +160,9 @@ far_fold_kernel(V* __restrict__ T, int32_t* __restrict__ C, const V* __restrict_
   const int i = blockIdx.z;
   const int c_first = a0 + TB;  // far starts: [c_first, c_last]
   const int c_last = b0;
-  const int n_stages = (c_last - c_first + kStageC) / kStageC;
+  int c_start = c_first;  // the stages cover [c_start, c_last]
+  if constexpr (kMasked) c_start = far_c_start(c_first, b0, span);
+  const int n_stages = far_stages(c_start, c_last);
 
   const int64_t rowS = static_cast<int64_t>(S);
   const int64_t plane = static_cast<int64_t>(i) * ltsp::plane_rows<kPacked>(R) * rowS;
@@ -158,7 +176,7 @@ far_fold_kernel(V* __restrict__ T, int32_t* __restrict__ C, const V* __restrict_
   // past c_last and window ends past R - 1 load clamped, never-used rows.
   auto load = [&](int st, int buf) {
     Stage& sm = stage[buf];
-    const int c0 = c_first + st * kStageC;
+    const int c0 = c_start + st * kStageC;
     for (int idx = tid; idx < 2 * kRowCopies; idx += kThreads) {
       const int rem = idx % kRowCopies;
       const int chunk = rem % kChunks;
@@ -227,7 +245,7 @@ far_fold_kernel(V* __restrict__ T, int32_t* __restrict__ C, const V* __restrict_
     cp_async_wait<kStages - 1>();
     __syncthreads();
     const Stage& sm = stage[st % kStages];
-    const int c0 = c_first + st * kStageC;
+    const int c0 = c_start + st * kStageC;
     const int n_cc = min(kStageC, c_last - c0 + 1);
     for (int cc = 0; cc < n_cc; ++cc) {
       const int c = c0 + cc;
@@ -402,13 +420,20 @@ int near_launch(void* T, void* C, const void* left, const void* right, const voi
 }
 
 // Every launch of one table build, in the order of ref.py's tile_schedule.
+// Besides the launches it counts the far fold's block-stages: those staged
+// (*n_far_stages) and those that staging every block from its c_first would
+// take (*n_far_stages_full).  Every block of tile diagonal D has b0 -
+// c_first = (D - 1) TB, so its blocks stage alike.
 template <typename V>
 int tables(void* T, void* C, const void* left, const void* right, const void* x,
            const void* nl, const void* u, int B, int R, int S, int span, int disjoint,
-           int static_tile, int packed, int* n_far, int* n_near, void* stream) {
+           int static_tile, int packed, int* n_far, int* n_near, long long* n_far_stages,
+           long long* n_far_stages_full, void* stream) {
   constexpr int TB = Tile<V>::value;
   *n_far = 0;
   *n_near = 0;
+  *n_far_stages = 0;
+  *n_far_stages_full = 0;
   const int n_tiles = n_tiles_of(R, TB);
   for (int D = 0; D < n_tiles; ++D) {
     if (D > 0) {
@@ -416,6 +441,9 @@ int tables(void* T, void* C, const void* left, const void* right, const void* x,
           far_launch<V>(T, C, right, nl, u, B, R, S, D, span, disjoint, packed, stream);
       if (err != 0) return err;
       ++*n_far;
+      const long long blocks = static_cast<long long>(S / kLanes) * (n_tiles - D) * B;
+      *n_far_stages += blocks * far_stages(far_c_start(TB, D * TB, span), D * TB);
+      *n_far_stages_full += blocks * far_stages(TB, D * TB);
     }
     for (int k = D == 0 ? 1 : 1 - TB; k < TB; ++k) {
       const int d = D * TB + k;
@@ -435,7 +463,9 @@ int tables(void* T, void* C, const void* left, const void* right, const void* x,
 // returns cudaGetLastError() of its launches (0 = launched) and never
 // synchronises: ltsp_far_fold_* and ltsp_near_fold_* issue one launch,
 // ltsp_tiled_tables_* a whole table build (counting its launches of each
-// kernel into *n_far and *n_near), ltsp_tile_size_* gives the tile size.
+// kernel into *n_far and *n_near, and the far fold's block-stages into
+// *n_far_stages and *n_far_stages_full), ltsp_tile_size_* gives the tile
+// size.
 // `packed` picks the layout of T and C (0 dense, 1 packed).
 #define LTSP_TILED_ENTRY_POINTS(SUFFIX, V)                                                   \
   extern "C" int ltsp_tile_size_##SUFFIX() { return Tile<V>::value; }                       \
@@ -457,9 +487,10 @@ int tables(void* T, void* C, const void* left, const void* right, const void* x,
                                             const void* nl, const void* u, int B, int R,    \
                                             int S, int span, int disjoint, int static_tile, \
                                             int packed, int* n_far, int* n_near,            \
-                                            void* stream) {                                  \
+                                            long long* n_far_stages,                        \
+                                            long long* n_far_stages_full, void* stream) {   \
     return tables<V>(T, C, left, right, x, nl, u, B, R, S, span, disjoint, static_tile,     \
-                     packed, n_far, n_near, stream);                                         \
+                     packed, n_far, n_near, n_far_stages, n_far_stages_full, stream);        \
   }
 
 LTSP_TILED_ENTRY_POINTS(i32, int32_t)

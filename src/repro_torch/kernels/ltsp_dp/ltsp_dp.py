@@ -30,7 +30,8 @@ Table types: ``int32`` (exact below 2**31, the solver's default), ``float32``
 
 Tensors on the CPU take the plain versions (:mod:`.ref`) instead of the
 kernels; a CUDA tensor always launches a kernel, and any failure to build or
-launch it raises.  :data:`LAUNCHES` counts kernel launches per kernel.
+launch it raises.  :data:`LAUNCHES` counts kernel launches per kernel,
+:data:`FAR_STAGES` the far fold's block-stages.
 """
 
 from __future__ import annotations
@@ -52,8 +53,8 @@ from .ref import (
 )
 
 __all__ = [
-    "DEFAULT_CAND_TILE", "TILE", "FAR_LANES", "LAUNCHES", "reset_launches", "ltsp_far_fold",
-    "ltsp_near_fold", "ltsp_dp_tables", "ltsp_traceback",
+    "DEFAULT_CAND_TILE", "TILE", "FAR_LANES", "LAUNCHES", "FAR_STAGES", "reset_launches",
+    "ltsp_far_fold", "ltsp_near_fold", "ltsp_dp_tables", "ltsp_traceback",
 ]
 
 #: default candidate-chunk height of the JAX kernel's banded scan.  It is
@@ -77,10 +78,18 @@ LAUNCHES: dict[str, int] = {
     name: 0 for name in ("far_fold_kernel", "near_fold_kernel", "traceback_kernel")
 }
 
+#: block-stages of ``kStageC`` detour starts that the far fold's launches
+#: issued by :func:`ltsp_dp_tables` on a CUDA device staged (``"staged"``)
+#: and would stage from each block's first far start on (``"full"``), since
+#: the last :func:`reset_launches`; the two differ under a LOGDP span
+#: (:func:`.ref.far_stage_counts` is the count on the CPU).
+FAR_STAGES: dict[str, int] = {"staged": 0, "full": 0}
+
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FAR_STAGES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _type_name(dtype: torch.dtype) -> str:
@@ -258,14 +267,18 @@ def ltsp_dp_tables(
                    cand_tile=cand_tile)
         return T, C
     n_far, n_near = ctypes.c_int(0), ctypes.c_int(0)
+    staged, full = ctypes.c_longlong(0), ctypes.c_longlong(0)
     try:
         _launch(T.device, "ltsp_tiled", f"ltsp_tiled_tables_{build.TYPE_SUFFIX[name]}",
                 *(t.data_ptr() for t in (T, C, left, right, x, nl, u)), B, R, S,
                 _span_arg(span), int(bool(disjoint)), int(R - 1 <= cand_tile), int(packed),
-                ctypes.byref(n_far), ctypes.byref(n_near), shape=f"B={B}, R={R}, S={S}")
+                ctypes.byref(n_far), ctypes.byref(n_near), ctypes.byref(staged),
+                ctypes.byref(full), shape=f"B={B}, R={R}, S={S}")
     finally:
         LAUNCHES["far_fold_kernel"] += n_far.value
         LAUNCHES["near_fold_kernel"] += n_near.value
+        FAR_STAGES["staged"] += staged.value
+        FAR_STAGES["full"] += full.value
     return T, C
 
 

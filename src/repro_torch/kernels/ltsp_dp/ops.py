@@ -98,7 +98,7 @@ import torch
 from ...core.instance import Instance, virtual_lb
 from ...core.warm import DenseStore, WarmState, WarmStats, align_warm, warm_from_instance
 from ...obs.trace import HOST_SPANS
-from .ltsp_dp import DEFAULT_CAND_TILE, TILE, ltsp_dp_tables, ltsp_traceback
+from .ltsp_dp import DEFAULT_CAND_TILE, FAR_STAGES, TILE, ltsp_dp_tables, ltsp_traceback
 from .ref import ltsp_dp_tables_ref, root_values, traceback_ref
 
 __all__ = [
@@ -454,7 +454,10 @@ def _solve_packed(
     or ``"dense"``) and ``table_bytes`` (``T`` and ``C``); on a CUDA device,
     ``alloc_retries`` (the caching allocator's retries after a failed
     request, across the span) and ``device_ns`` (two CUDA events around the
-    build, read inside the wait that follows it).
+    build, read inside the wait that follows it); with the kernels there,
+    ``far_stages`` and ``far_stages_full`` (the far fold's block-stages,
+    staged and from every block's first far start on:
+    :data:`~.ltsp_dp.FAR_STAGES`).
     """
     with HOST_SPANS.open("ltsp.prepare"):
         left, right, x, nl, u, S = prepare_batch(
@@ -471,6 +474,7 @@ def _solve_packed(
         if build:
             timer = _build_timer(left.device)
             retries = _alloc_retries(left.device)
+            stages = dict(FAR_STAGES)
         T, C = tables(
             left, right, x, nl, u, S=S, span=span, disjoint=disjoint,
             cand_tile=cand_tile, packed=packed,
@@ -482,6 +486,9 @@ def _solve_packed(
             build.attrs["table_bytes"] = T.nbytes + C.nbytes
             if retries is not None:
                 build.attrs["alloc_retries"] = _alloc_retries(left.device) - retries
+            if timer and backend == "cuda":  # the C loop counted them
+                build.attrs["far_stages"] = FAR_STAGES["staged"] - stages["staged"]
+                build.attrs["far_stages_full"] = FAR_STAGES["full"] - stages["full"]
     R = left.shape[1]
     with HOST_SPANS.open("ltsp.wait") as sp:
         T_root = _to_host(root_values(T, R))

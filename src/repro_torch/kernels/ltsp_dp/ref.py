@@ -44,6 +44,7 @@ __all__ = [
     "diagonal_update",
     "tile_schedule",
     "far_fold",
+    "far_stage_counts",
     "near_update",
     "fill_tiled",
     "ltsp_dp_tables_ref",
@@ -277,18 +278,43 @@ def far_fold(T, C, left, right, x, nl, u, D: int, *, Tb: int, span: int | None,
     detour starts ``c`` in ``[(A + 1) Tb, (A + D) Tb]`` goes to cell
     ``(a, b)`` of ``T`` (the sentinel where no start is live) and its argmin
     to ``C`` (-1 where none is).  Both operands of these starts
-    lie on tile diagonals ``< D``, so every one is final."""
+    lie on tile diagonals ``< D``, so every one is final.  Under a LOGDP
+    ``span`` the fold begins, as the kernel's stages do, at ``(A + D) Tb -
+    span``: below it no start is live for any cell of the tile."""
     a, b, A = _tile_cells(left.shape[1], Tb, D, None, T.device)
     c_lo = _window_start(a, b, span, disjoint)
     fold = _folder(T, right, nl, u, a, b)
     best, arg = _empty_fold(T, a.numel())
-    for t in range((D - 1) * Tb + 1):
+    first = 0 if span is None else max(0, (D - 1) * Tb - span)
+    for t in range(first, (D - 1) * Tb + 1):
         c = (A + 1) * Tb + t  # in [a + 1, b]: far starts lie inside every window
         best, arg = fold(c, c >= c_lo, best, arg)
     R = left.shape[1]
     (rows, row), (c_rows, _) = _flat(T, R), _flat(C, R)
     rows[:, row(a, b), :] = best
     c_rows[:, row(a, b), :] = arg
+
+
+def far_stage_counts(R: int, S: int, B: int, span: int | None, disjoint: bool, *,
+                     Tb: int = 8, lanes: int = 32, stage_c: int = 8) -> tuple[int, int]:
+    """``(staged, full)``: the far fold's block-stages over one tiled build
+    of ``B`` instances at ``(R, S)``, as ``csrc/ltsp_tiled.cu`` counts them
+    (a block per tile and ``lanes`` s lanes, ``stage_c`` detour starts a
+    stage; ``Tb``, ``lanes`` and ``stage_c`` are ``Tile<V>``, ``kLanes``
+    and ``kStageC`` there).  ``full`` stages every far start of every
+    block, ``staged`` only those from the block's lowest live start under a
+    LOGDP ``span`` on (:func:`far_fold`); the SIMPLEDP clip (``disjoint``)
+    narrows no block's range, its dead rows are masked cell by cell."""
+    n_tiles = -(-R // Tb)
+    staged = full = 0
+    for D in range(1, n_tiles):
+        blocks = (S // lanes) * (n_tiles - D) * B
+        width = (D - 1) * Tb  # the far starts c_first .. c_last, less one
+        full += blocks * ((width + stage_c) // stage_c)
+        if span is not None:
+            width = min(width, span)
+        staged += blocks * ((width + stage_c) // stage_c)
+    return staged, full
 
 
 def near_update(T, C, left, right, x, nl, u, D: int, k: int, *, Tb: int,

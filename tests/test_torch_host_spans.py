@@ -202,6 +202,7 @@ def test_an_armed_build_records_its_layout_and_bytes(backend, capture, layout):
     assert tables.attrs["layout"] == layout
     assert tables.attrs["table_bytes"] == cells * (8 + 4)
     assert "alloc_retries" not in tables.attrs and "device_ns" not in tables.attrs
+    assert "far_stages" not in tables.attrs and "far_stages_full" not in tables.attrs
 
 
 def test_the_bounded_log_counts_what_it_drops():
@@ -297,6 +298,8 @@ def test_cuda_armed_solve_times_the_build(cuda_device, policy):
         tables = spans["ltsp.tables"]
         assert 0 < tables.attrs["device_ns"] <= spans["root"].t1 - tables.t0
         assert "device_ns" not in spans["ltsp.traceback"].attrs
+        staged, full = tables.attrs["far_stages"], tables.attrs["far_stages_full"]
+        assert 0 < staged <= full and (staged == full) == (policy == "dp")
         assert sum(s.attrs.get("copies", 0) for s in log.spans) == 8
 
 

@@ -128,6 +128,80 @@ def test_the_row_formula_is_the_benchmarks_reference(R):
     assert torch.equal(reference.row(a, b, R), rows)
 
 
+#: the far fold stages 8 detour starts at a time: LOGDP spans inside one
+#: stage, at and across its boundary, and SIMPLEDP (``None``)
+BAND_SPANS = [1, 3, 7, 8, 9, 15, 16, 17, None]
+#: seven tiles of 8, the last ragged
+BAND_R = 53
+
+
+def band_kwargs(span: int | None) -> dict:
+    return {"span": span, "disjoint": span is None}
+
+
+@functools.cache
+def band_arrays(dtype_name: str, device: str):
+    """Two instances of ``BAND_R`` files (the second narrower, padded with
+    phantom files) at ``R = BAND_R``: ``(arrays, S)``."""
+    rng = np.random.default_rng([SEED, 92, BAND_R])
+    insts = [random_instance(rng, BAND_R), random_instance(rng, BAND_R - 5)]
+    *arrays, S = ops.prepare_batch(insts, dtype=getattr(torch, dtype_name), R_pad=BAND_R,
+                                   device=device)
+    return arrays, S
+
+
+@pytest.mark.parametrize("dtype_name", ["float64", "float32", "int32"])
+@pytest.mark.parametrize("span", BAND_SPANS)
+def test_banded_far_fold_builds_the_per_diagonal_tables(span, dtype_name):
+    """The plain tiled build, whose far fold starts at each tile's lowest
+    live start under a span, gives the reference's per-diagonal tables on
+    every window, dense and packed, over seven tiles with a ragged last one."""
+    arrays, S = band_arrays(dtype_name, "cpu")
+    kw = dict(S=S, cand_tile=CAND_TILE, **band_kwargs(span))
+    Td, Cd = ref.ltsp_dp_tables_ref(*arrays, **kw)
+    for packed in (False, True):
+        T, C = ref.ltsp_dp_tables_tiled_ref(*arrays, Tb=ltsp_dp.TILE[dtype_name],
+                                            packed=packed, **kw)
+        assert torch.equal(T, upper(Td) if packed else Td)
+        assert torch.equal(C, upper(Cd) if packed else Cd)
+
+
+#: (R, S, B, span) -> (staged, full), counted by hand: R 20 and 30 are three
+#: and four tiles of 8, S 64 two lane slices of 32
+STAGE_CASES = {
+    (20, 64, 1, None): (8, 8),  # D = 1: 2 x 2 blocks of 1 stage; D = 2: 2 x 1 of 2
+    (20, 64, 1, 3): (6, 8),  # D = 2 stages once from b0 - 3
+    (20, 64, 1, 9): (8, 8),  # b0 - 9 lies below the first far start
+    (30, 64, 1, 8): (18, 20),  # D = 3: 2 blocks of 2 stages, not 3
+    (30, 64, 2, 8): (36, 40),
+}
+
+
+@pytest.mark.parametrize("case", list(STAGE_CASES))
+def test_far_stage_counts_by_hand(case):
+    R, S, B, span = case
+    assert ref.far_stage_counts(R, S, B, span, False) == STAGE_CASES[case]
+    assert ref.far_stage_counts(R, S, B, span, True) == STAGE_CASES[case]
+
+
+@pytest.mark.parametrize("disjoint", [False, True])
+@pytest.mark.parametrize("R", [1, 8, 9, 53, 512, 714])
+def test_far_stage_counts_stage_every_start_without_a_span(R, disjoint):
+    staged, full = ref.far_stage_counts(R, 128, 3, None, disjoint)
+    assert staged == full == sum(4 * (-(-R // 8) - D) * 3 * D for D in range(1, -(-R // 8)))
+
+
+def test_far_stage_counts_stage_once_a_block_at_span_7():
+    """At ``R`` 512 (64 tiles) and span 7 every block of every tile
+    diagonal stages once; without the band a block of diagonal D stages D
+    times."""
+    staged, full = ref.far_stage_counts(512, 128, 1, 7, False)
+    blocks = [4 * (64 - D) for D in range(1, 64)]
+    assert staged == sum(blocks)
+    assert full == sum(D * n for D, n in zip(range(1, 64), blocks))
+    assert staged / full == pytest.approx(3 / 65)
+
+
 def tiny_tapes():
     """Tapes of the benchmark's tiny paper profile (at most 20 files)."""
     from ltsp_bench import tapes as tapegen
@@ -224,3 +298,45 @@ def test_cuda_solve_equals_python(cuda_device, policy):
     got = solve_batch(batch, policy, context=card)
     want = solve_batch(batch, policy, context=python)
     assert [(r.cost, r.detours) for r in got] == [(r.cost, r.detours) for r in want]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("dtype_name", ["float64", "float32", "int32"])
+@pytest.mark.parametrize("span", BAND_SPANS)
+def test_cuda_banded_build_equals_the_tiled_plain_version(cuda_device, span, dtype_name,
+                                                          packed):
+    """The card's build, whose far fold stages from each block's lowest live
+    start under a span, equals the plain tiled build bit for bit, and its C
+    loop counts the block-stages that ``ref.far_stage_counts`` counts."""
+    arrays, S = band_arrays(dtype_name, cuda_device)
+    kw = dict(S=S, cand_tile=CAND_TILE, packed=packed, **band_kwargs(span))
+    before = dict(ltsp_dp.FAR_STAGES)
+    T, C = ltsp_dp.ltsp_dp_tables(*arrays, device=cuda_device, **kw)
+    staged, full = (ltsp_dp.FAR_STAGES[k] - before[k] for k in ("staged", "full"))
+    T_plain, C_plain = ref.ltsp_dp_tables_tiled_ref(*arrays, Tb=ltsp_dp.TILE[dtype_name], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(T, T_plain) and torch.equal(C, C_plain)
+    assert (staged, full) == ref.far_stage_counts(BAND_R, S, 2, **band_kwargs(span))
+    assert (staged < full) == (span is not None and span < 5 * 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", BAND_SPANS)
+def test_cuda_banded_solve_plans_equal_the_python_dp(cuda_device, span):
+    """An int32 solve and a float64 one on the card's packed path give the
+    port's python DP's plan under each span (SIMPLEDP's for ``None``)."""
+    from repro_torch.core import dp_schedule, simpledp_schedule
+
+    def python(inst):
+        return simpledp_schedule(inst) if span is None else dp_schedule(inst, span=span)
+
+    rng = np.random.default_rng([SEED, 93])
+    narrow = random_instance(rng, BAND_R)
+    got = ops.ltsp_solve_batch([narrow], device=cuda_device, **band_kwargs(span))
+    assert got == [python(narrow)]
+    wide, _ = paper_like(BAND_R, 300, "dp")
+    assert ops._table_bound(ops.rescale_instance(wide)[0]) >= 2**31
+    got = ops.ltsp_solve_batch([wide], device=cuda_device, numeric_policy="f64",
+                               **band_kwargs(span))
+    assert got == [python(wide)]

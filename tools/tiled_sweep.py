@@ -117,12 +117,14 @@ def main() -> int:
         T_ref, C_ref = ltsp_dp.ltsp_dp_tables(*arrays, S=S)
         stream = torch.cuda.current_stream().cuda_stream
         n_far, n_near = ctypes.c_int(0), ctypes.c_int(0)
+        n_stages, n_stages_full = ctypes.c_longlong(0), ctypes.c_longlong(0)
 
         def run(v, T, C):
             err = libs[v].ltsp_tiled_tables_f64(
                 *(t.data_ptr() for t in (T, C, *arrays)), 1, shape[0], S, -1, 0,
                 int(shape[0] - 1 <= ltsp_dp.DEFAULT_CAND_TILE), 0, ctypes.byref(n_far),
-                ctypes.byref(n_near), stream)
+                ctypes.byref(n_near), ctypes.byref(n_stages), ctypes.byref(n_stages_full),
+                stream)
             if err != 0:
                 raise SystemExit(f"tiled_sweep: variant {v} launch failed: cudaError {err}")
 
